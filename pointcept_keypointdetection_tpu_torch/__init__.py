@@ -6,5 +6,6 @@ The JAX package stays the reference; this package imports nothing of it, nor
 CUDA kernels are under ``kernels/`` with their sources in ``csrc/``.
 
 Ported so far: the offset-keypoint inference path over PT-v3m1
-(``inference.keypoint.OffsetKeypointPredictor``, ``serve``).
+(``inference.keypoint.OffsetKeypointPredictor``, ``serve``) and its
+training path (``engines.train.Trainer``, ``train``).
 """

@@ -1,4 +1,7 @@
-// Submanifold sparse conv, forward: a hand-written gather-GEMM kernel for Hopper (sm_90a).
+// Submanifold sparse conv, forward (B3) and weight gradient (B4): hand-written
+// gather-GEMM kernels for Hopper (sm_90a).
+//
+// ---- B3, forward ----
 //
 // Replaces the Pallas TPU kernel
 // pointcept_keypointdetection_tpu/ops/pallas/sparse_conv.py::_conv_kernel
@@ -29,17 +32,51 @@
 // the f32 FFMA rate bounds it, not the bytes.  FFMA rather than TF32 keeps f32
 // results within rounding of the plain version; mma.sync/wgmma, and a deeper
 // pipeline, are later work.
+//
+// ---- B4, weight gradient ----
+//
+// Replaces the Pallas TPU kernel
+// pointcept_keypointdetection_tpu/ops/pallas/sparse_conv.py::_dw_kernel
+// (reached through fused_subm_conv_dw from ops/sparse.py::_subm_conv_sym_bwd):
+//     dW[d] = sum_i feat_pad[idx[i, d]]^T grad[i],   feat_pad[N] = 0,
+// with feat [N, Cin], idx int32 [N, K], grad [N, Cout] in f32 or bf16 and
+// dW [K, Cin, Cout] in f32.
+//
+// For an offset d this is a [Cin x N] x [N x Cout] product whose A side is
+// gathered.  The Pallas kernel keeps dW resident in VMEM and adds each row
+// tile's product to it across a sequential grid; on the card blocks run in
+// no order, so nothing may carry over between them.  Here a block owns one
+// BM x BN tile of dW[d] (Cin rows, Cout columns) and one contiguous split of
+// the N rows.  It walks its split CHUNK rows at a time: each thread reads one
+// row's neighbour index, a warp ballot and a prefix over the warps compact
+// the rows that hit a neighbour (index < N) into shared memory, and rows
+// whose index is the sentinel are skipped instead of gathering a zero row.
+// The hit rows are then taken BK at a time: their gathered feature rows and
+// their gradient rows go to shared memory, and every thread accumulates a
+// TM x TN micro-tile in f32 registers with FFMA.
+//
+// Splits: the N sum reaches 65,536 rows while a deep stage's dW has many
+// tiles and a shallow one's few; the wrapper picks the number of splits so
+// that about four blocks run per SM.  With more than one split each writes
+// an f32 partial dW to a workspace [splits, K, Cin, Cout] and a second
+// kernel adds the splits in a fixed order (deterministic, no atomics).
+//
+// Bound: 2 * hits * Cin * Cout flops (hits = the map's found neighbours) at
+// the f32 FFMA rate; the bytes (feat, idx, grad once, dW once) are far
+// smaller.  mma.sync/wgmma and a deeper pipeline are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 64;   // output rows per block (the wrapper's TILE)
-constexpr int BN = 64;   // output columns per block (the wrapper's TILE)
-constexpr int BK = 16;   // input channels per shared-memory step
+constexpr int BM = 64;   // output rows per block (the wrapper's TILE); B4: Cin rows of a dW tile
+constexpr int BN = 64;   // output columns per block (the wrapper's TILE); B4: Cout columns of a dW tile
+constexpr int BK = 16;   // input channels per shared-memory step; B4: hit rows per step
 constexpr int TM = 4;    // rows per thread
 constexpr int TN = 4;    // columns per thread
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+constexpr int CHUNK = THREADS;                  // B4: rows whose hits one compaction collects
+constexpr int WARPS = THREADS / 32;
 constexpr int AP = BM + 4;  // padded row of the transposed A tile: a 16B-aligned float4 row, 2-way store conflicts at most
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -123,7 +160,8 @@ __global__ void __launch_bounds__(THREADS) subm_conv_kernel(
   }
 }
 
-// out[i] = sum_z partial[z][i], z in order, for the `total` = N * Cout entries.
+// out[i] = sum_z partial[z][i], z in order, for the `total` entries: N * Cout
+// of B3's output, or K * Cin * Cout of B4's dW (T = float).
 template <typename T>
 __global__ void sum_splits_kernel(const float* __restrict__ partial, T* __restrict__ out, long total,
                                   int splits) {
@@ -150,6 +188,108 @@ int launch(const T* feat, const int* idx, const T* w, T* out, float* workspace, 
   return (int)cudaGetLastError();
 }
 
+// Split blockIdx.z / kvol writes its f32 sum to dw_out[split] ([kvol, cin, cout] each).
+template <typename T>
+__global__ void __launch_bounds__(THREADS) subm_conv_dw_kernel(
+    const T* __restrict__ feat, const int* __restrict__ idx, const T* __restrict__ grad,
+    float* __restrict__ dw_out, int n, int kvol, int cin, int cout, int rows_per_split) {
+  __shared__ int src_rows[CHUNK];  // the hit rows' neighbours: rows of feat
+  __shared__ int dst_rows[CHUNK];  // the hit rows themselves: rows of grad
+  __shared__ int warp_hits[WARPS];
+  __shared__ __align__(16) float as[BK][BM];  // as[r][c] = feat[src_rows[r], ci0 + c]
+  __shared__ __align__(16) float bs[BK][BN];  // bs[r][c] = grad[dst_rows[r], co0 + c]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const int co0 = blockIdx.x * BN, ci0 = blockIdx.y * BM;
+  const int d = blockIdx.z % kvol, split = blockIdx.z / kvol;
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(n, r_begin + rows_per_split);
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += CHUNK) {
+    const int r = r0 + tid;
+    const int src = r < r_end ? idx[(long)r * kvol + d] : n;
+    const bool hit = (unsigned)src < (unsigned)n;
+    const unsigned mask = __ballot_sync(0xffffffffu, hit);
+    // every read of warp_hits, src_rows and dst_rows for the previous chunk
+    // happened before the last barrier that every thread passed
+    if (lane == 0) warp_hits[warp] = __popc(mask);
+    __syncthreads();
+    int base = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int c = warp_hits[w];
+      base += w < warp ? c : 0;
+      total += c;
+    }
+    if (hit) {
+      const int pos = base + __popc(mask & ((1u << lane) - 1u));
+      src_rows[pos] = src;
+      dst_rows[pos] = r;
+    }
+    __syncthreads();
+
+    for (int k0 = 0; k0 < total; k0 += BK) {
+      for (int e = tid; e < BK * BM; e += THREADS) {
+        const int kk = e / BM, c = e % BM;
+        const int ci = ci0 + c;
+        as[kk][c] = (k0 + kk < total && ci < cin) ? to_f(feat[(long)src_rows[k0 + kk] * cin + ci]) : 0.f;
+      }
+      for (int e = tid; e < BK * BN; e += THREADS) {
+        const int kk = e / BN, c = e % BN;
+        const int co = co0 + c;
+        bs[kk][c] = (k0 + kk < total && co < cout) ? to_f(grad[(long)dst_rows[k0 + kk] * cout + co]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        const float4 a = *reinterpret_cast<const float4*>(&as[kk][ty * TM]);
+        const float4 b = *reinterpret_cast<const float4*>(&bs[kk][tx * TN]);
+        const float av[TM] = {a.x, a.y, a.z, a.w};
+        const float bv[TN] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+
+  float* dst = dw_out + ((long)split * kvol + d) * cin * cout;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int ci = ci0 + ty * TM + i;
+    if (ci >= cin) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int co = co0 + tx * TN + j;
+      if (co < cout) dst[(long)ci * cout + co] = acc[i][j];
+    }
+  }
+}
+
+template <typename T>
+int launch_dw(const T* feat, const int* idx, const T* grad, float* dw, float* workspace, int n, int kvol,
+              int cin, int cout, int splits, int rows_per_split, cudaStream_t s) {
+  const dim3 grid((cout + BN - 1) / BN, (cin + BM - 1) / BM, kvol * splits);
+  subm_conv_dw_kernel<T><<<grid, THREADS, 0, s>>>(feat, idx, grad, splits > 1 ? workspace : dw, n, kvol, cin,
+                                                  cout, rows_per_split);
+  if (splits > 1) {
+    const long total = (long)kvol * cin * cout;
+    const long want = (total + 255) / 256;
+    const int blocks = want < 4096 ? (int)want : 4096;
+    sum_splits_kernel<float><<<blocks, 256, 0, s>>>(workspace, dw, total, splits);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // feat [n, cin], w [kvol, cin, cout] and out [n, cout] of one dtype (0 = f32,
@@ -169,4 +309,26 @@ extern "C" int subm_conv_fwd(const void* feat, const void* idx, const void* w, v
                   ws, n, kvol, cin, cout, splits, s);
   return launch(static_cast<const __nv_bfloat16*>(feat), ix, static_cast<const __nv_bfloat16*>(w),
                 static_cast<__nv_bfloat16*>(out), ws, n, kvol, cin, cout, splits, s);
+}
+
+// feat [n, cin] and grad [n, cout] of one dtype (0 = f32, 1 = bf16); idx
+// int32 [n, kvol]; dw f32 [kvol, cin, cout]; the N rows are cut into
+// `splits` runs of rows_per_split rows, and with splits > 1 workspace is f32
+// [splits, kvol, cin, cout] (else unused).  Returns cudaGetLastError().
+extern "C" int subm_conv_dw(const void* feat, const void* idx, const void* grad, void* dw, void* workspace,
+                            int n, int kvol, int cin, int cout, int splits, int rows_per_split, int dtype,
+                            void* stream) {
+  if (n < 0 || kvol <= 0 || cin <= 0 || cout <= 0 || (dtype != 0 && dtype != 1) || splits < 1 ||
+      (long)kvol * splits > 65535 || (cin + BM - 1) / BM > 65535 || rows_per_split <= 0 ||
+      (long)splits * rows_per_split < n || (splits > 1 && workspace == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ix = static_cast<const int*>(idx);
+  float* out = static_cast<float*>(dw);
+  float* ws = static_cast<float*>(workspace);
+  if (dtype == 0)
+    return launch_dw(static_cast<const float*>(feat), ix, static_cast<const float*>(grad), out, ws, n, kvol, cin,
+                     cout, splits, rows_per_split, s);
+  return launch_dw(static_cast<const __nv_bfloat16*>(feat), ix, static_cast<const __nv_bfloat16*>(grad), out, ws,
+                   n, kvol, cin, cout, splits, rows_per_split, s);
 }

@@ -1,16 +1,17 @@
 """Padded-slot collation: sample dicts -> fixed-shape batch arrays.
 
 The port's copy of ``pointcept_keypointdetection_tpu/datasets/collate.py``,
-cut to the single-view case the predictor uses (no multi-view groups, no
-Mix3D).  Every per-point array is padded, or subsampled, to exactly
-``slot_size`` rows, and a ``valid`` mask marks the real rows.  The subsample
-takes an explicit generator: the JAX copy's unseeded ``np.random.choice``
-(`collate.py:75`) would make two runs disagree.
+cut to the single-view case of the predictor and the trainer (no multi-view
+groups, no Mix3D).  Every per-point array is padded, or subsampled, to
+exactly ``slot_size`` rows, and a ``valid`` mask marks the real rows.  The
+subsample draws ``rng.choice(n, slot_size, replace=False)`` from the caller's
+``rng``: the trainer's loader passes the global ``np.random``, which the
+trainer seeds, and so draws what the JAX copy draws (`collate.py:75`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
 
@@ -32,17 +33,16 @@ PER_POINT_KEYS = (
 _PAD_VALUES = {"segment": -1, "instance": -1}
 
 
-def pad_sample(
-    sample: Dict[str, np.ndarray], slot_size: int, rng: Optional[np.random.Generator] = None
-) -> Dict[str, np.ndarray]:
-    """Pad, or subsample with ``rng``, every per-point array to ``slot_size`` rows."""
+def pad_sample(sample: Dict[str, np.ndarray], slot_size: int, rng=None) -> Dict[str, np.ndarray]:
+    """Pad, or subsample with ``rng`` (a ``np.random.Generator`` or the
+    ``np.random`` module), every per-point array to ``slot_size`` rows."""
     out = dict(sample)
     keys = [k for k in out if k in PER_POINT_KEYS]
     n = out["coord"].shape[0]
     if n > slot_size:
         if rng is None:
             raise ValueError(f"{n} points exceed slot_size={slot_size}: pass rng to subsample")
-        idx = np.sort(rng.choice(n, slot_size, replace=False))
+        idx = rng.choice(n, slot_size, replace=False)
         for key in keys:
             out[key] = out[key][idx]
         n = slot_size
@@ -56,8 +56,7 @@ def pad_sample(
     return out
 
 
-def collate(samples: List[Dict[str, np.ndarray]], slot_size: int,
-            rng: Optional[np.random.Generator] = None) -> Dict[str, np.ndarray]:
+def collate(samples: List[Dict[str, np.ndarray]], slot_size: int, rng=None) -> Dict[str, np.ndarray]:
     """Collate sample dicts into one batch dict of [B*S, ...] arrays."""
     padded = [pad_sample(s, slot_size, rng) for s in samples]
     batch: Dict[str, np.ndarray] = {}

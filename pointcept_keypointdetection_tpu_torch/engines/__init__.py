@@ -1,1 +1,1 @@
-"""Batch assembly helpers."""
+"""Batch assembly, the trainer, its hooks and the CLI defaults."""

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain PyTorch version.
 
-* ``patch_attention``: kernel B1, serialized patch attention forward.
-* ``sparse_conv``: kernel B3, gather-GEMM submanifold conv forward.
+* ``patch_attention``: kernels B1 and B2, serialized patch attention forward
+  and backward, and ``PatchAttentionFunction``.
+* ``sparse_conv``: kernels B3 and B4, gather-GEMM submanifold conv forward
+  and weight gradient, and ``SubmConvFunction``.
 
 Sources live in ``../csrc``; ``_build`` compiles them with nvcc at first use.
 """

@@ -1,4 +1,4 @@
-"""PT-v3m1, the eval path: serialized point transformer over fixed slots.
+"""PT-v3m1: serialized point transformer over fixed slots, eval and training.
 
 Counterpart of ``pointcept_keypointdetection_tpu/models/
 point_transformer_v3.py:439-721`` for the options the repo's PTv3 configs
@@ -11,9 +11,15 @@ this one.  Module names follow the flax parameter tree, so ``convert.py``
 maps a JAX checkpoint name by name; blocks are ``enc{s}_block{i}`` whether
 or not JAX stacked them under ``nn.scan``.
 
-Not ported (raise): training (order shuffling, batch statistics, drop path),
-enc_mode, PDNorm, LoRA, RPE, the bottleneck and large-kernel xCPE, chain
-kernel maps, the k=3 stem and the cell-select stem.
+Training (`:457-471`, `:569-570`): batch statistics in the stem and pooling
+norms, per-Block drop-path rates drop_path * i / (blocks - 1) over the
+encoder and then the decoder Blocks in the order they run, and, with
+``shuffle_orders``, a fresh permutation of the order list at every
+serialization, drawn from the generator passed to ``forward``; a shuffled
+forward does not reuse the z sort for the kernel maps and pooling.
+
+Not ported (raise): enc_mode, PDNorm, LoRA, RPE, the bottleneck and
+large-kernel xCPE, chain kernel maps, the k=3 stem and the cell-select stem.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ _UNPORTED_DEFAULTS = dict(
     stem_conv="cell_packed",
 )
 # JAX options that pick an implementation, not a result: accepted and ignored
-_IMPLEMENTATION_ONLY = ("attn_impl", "scan_blocks", "shuffle_orders")
+_IMPLEMENTATION_ONLY = ("attn_impl", "scan_blocks")
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -97,9 +103,9 @@ class SerializedAttention(nn.Module):
         order, inverse = point.serialized_order[i], point.serialized_inverse[i]
         h = self.num_heads
         qkv = self.qkv(point.feat)
-        qkv_sorted = take_permutation(qkv, order).reshape(-1, 3, h, self.channels // h)
+        qkv_sorted = take_permutation(qkv, order, inverse).reshape(-1, 3, h, self.channels // h)
         feat = patch_attention(qkv_sorted, point.valid[order], self.patch_size, self.scale)
-        return self.proj(take_permutation(feat, inverse))
+        return self.proj(take_permutation(feat, inverse, order))
 
 
 class MLP(nn.Module):
@@ -126,10 +132,12 @@ class Block(nn.Module):
         self.mlp = MLP(channels, mlp_ratio)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, point: PointBatch, kmap: KernelMap, order_index: int) -> PointBatch:
+    def forward(self, point: PointBatch, kmap: KernelMap, order_index: int,
+                generator: Optional[torch.Generator] = None) -> PointBatch:
+        b = point.num_samples
         feat = point.feat + self.cpe(point.feat, kmap)
-        feat = feat + self.drop_path(self.attn(point.replace(feat=self.norm1(feat)), order_index))
-        feat = feat + self.drop_path(self.mlp(self.norm2(feat)))
+        feat = feat + self.drop_path(self.attn(point.replace(feat=self.norm1(feat)), order_index), b, generator)
+        feat = feat + self.drop_path(self.mlp(self.norm2(feat)), b, generator)
         return point.replace(feat=feat)
 
 
@@ -143,7 +151,7 @@ class SerializedPooling(nn.Module):
         self.norm = MaskedBatchNorm(out_channels, momentum=bn_momentum)
 
     def forward(self, point: PointBatch, slot_capacity: int, orders: Sequence[str],
-                precomputed_perm: Optional[torch.Tensor]):
+                precomputed_perm: Optional[torch.Tensor], generator: Optional[torch.Generator] = None):
         parent_grid = point.grid_coord >> self.levels
         batch = point.batch
         code = code_or_batch(z_order_encode(parent_grid, _DEPTH), batch, _DEPTH)
@@ -163,7 +171,7 @@ class SerializedPooling(nn.Module):
             valid=su.out_valid,
             num_samples=point.num_samples,
         )
-        return pooled.serialize(orders=tuple(orders), depth=_DEPTH), su
+        return pooled.serialize(orders=tuple(orders), depth=_DEPTH, generator=generator), su
 
 
 class SerializedUnpooling(nn.Module):
@@ -203,6 +211,7 @@ class PointTransformerV3(nn.Module):
         qkv_bias: bool = True,
         qk_scale: Optional[float] = None,
         drop_path: float = 0.3,
+        shuffle_orders: bool = True,
         slot_divisors: Sequence[int] = (1, 2, 4, 8, 16),
         stem_kernel: int = 5,
         bn_momentum: float = 0.01,
@@ -227,6 +236,7 @@ class PointTransformerV3(nn.Module):
         self.slot_divisors = tuple(slot_divisors)
         self.stem_kernel = stem_kernel
         self.kmap_depth = kmap_depth
+        self.shuffle_orders = shuffle_orders
         num_stages = len(enc_depths)
         self.out_channels = dec_channels[0] if num_stages > 1 else enc_channels[0]
 
@@ -236,10 +246,14 @@ class PointTransformerV3(nn.Module):
         self.stem_norm = MaskedBatchNorm(enc_channels[0], momentum=bn_momentum)
         self._stem_packed = None  # (key of the weight's value, its cell_packed_weight)
 
+        # one rate per Block, in the order the Blocks run: encoder, then decoder (`:569-570`)
+        total_blocks = sum(enc_depths) + sum(dec_depths)
+        rates = iter([drop_path * i / max(total_blocks - 1, 1) for i in range(total_blocks)])
+
         def blocks(prefix, depth, channels, heads, patch):
             names = [f"{prefix}_block{i}" for i in range(depth)]
             for name in names:
-                self.add_module(name, Block(channels, heads, patch, mlp_ratio, drop_path, qkv_bias, qk_scale))
+                self.add_module(name, Block(channels, heads, patch, mlp_ratio, next(rates), qkv_bias, qk_scale))
             return names
 
         self.enc_names: List[List[str]] = []
@@ -264,10 +278,11 @@ class PointTransformerV3(nn.Module):
         cap = max(slot0 // self.slot_divisors[s], k)
         return -(-cap // k) * k
 
-    def _reuse_perm(self, point: PointBatch) -> Optional[torch.Tensor]:
+    def _reuse_perm(self, point: PointBatch, shuffled: bool) -> Optional[torch.Tensor]:
         # without shuffling, the z serialization's sort doubles as the
-        # kernel-map and pooling sort (z(c >> s) = z(c) >> 3s)
-        return point.serialized_order[0] if self.order[0] == "z" else None
+        # kernel-map and pooling sort (z(c >> s) = z(c) >> 3s); a shuffled
+        # order list may put another curve first
+        return point.serialized_order[0] if self.order[0] == "z" and not shuffled else None
 
     def _stem_packed_weight(self) -> torch.Tensor:
         """The stem weight parity-expanded for ``cell_packed_apply``; without
@@ -282,24 +297,29 @@ class PointTransformerV3(nn.Module):
             self._stem_packed = (key, cell_packed_weight(w, self.stem_shift, spec))
         return self._stem_packed[1]
 
-    def _kernel_map(self, point: PointBatch) -> KernelMap:
+    def _kernel_map(self, point: PointBatch, shuffled: bool) -> KernelMap:
         kd = self.kmap_depth
         batch = point.batch
-        index = build_voxel_index(point.grid_coord, batch, point.valid, kd, self._reuse_perm(point))
+        index = build_voxel_index(point.grid_coord, batch, point.valid, kd, self._reuse_perm(point, shuffled))
         return build_kernel_map(index, point.grid_coord, batch, point.valid, SparseConvSpec.cube(3), kd)
 
-    def forward(self, point: PointBatch) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("PT-v3m1: only the eval forward is ported")
+    def forward(self, point: PointBatch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Features of the last decoder level.  ``generator`` (a CPU
+        ``torch.Generator``) drives order shuffling and drop path in
+        training; it is needed there unless both are off."""
         slot0 = point.slot_size
         if slot0 % self.enc_patch_size[0]:
             raise ValueError(f"slot size {slot0} is not a multiple of patch {self.enc_patch_size[0]}")
-        point = point.serialize(orders=self.order, depth=_DEPTH)
+        shuffled = self.training and self.shuffle_orders
+        if shuffled and generator is None:
+            raise ValueError("PT-v3m1: training with shuffle_orders needs a generator")
+        shuffle_gen = generator if shuffled else None
+        point = point.serialize(orders=self.order, depth=_DEPTH, generator=shuffle_gen)
 
         # ---- embedding: k=5 stem on the coarse cells + BN + GELU ----------
         parent = build_parent_index(point.grid_coord, point.batch, point.valid, self.stem_shift,
-                                    self.kmap_depth, precomputed_perm=self._reuse_perm(point))
-        kmap = self._kernel_map(point)  # the stage-0 xCPE map
+                                    self.kmap_depth, precomputed_perm=self._reuse_perm(point, shuffled))
+        kmap = self._kernel_map(point, shuffled)  # the stage-0 xCPE map
         feat = cell_packed_apply(point.feat, parent, point.valid, self._stem_packed_weight())
         x = point.replace(feat=gelu(self.stem_norm(feat, point.valid)))
 
@@ -309,17 +329,17 @@ class PointTransformerV3(nn.Module):
             if s > 0:
                 skips.append(x)
                 x, su = getattr(self, f"enc{s}_down")(
-                    x, self._stage_cap(slot0, s), self.order, self._reuse_perm(x)
+                    x, self._stage_cap(slot0, s), self.order, self._reuse_perm(x, shuffled), shuffle_gen
                 )
                 sus.append(su)
-                kmap = self._kernel_map(x)
+                kmap = self._kernel_map(x, shuffled)
             kmaps.append(kmap)
             for i, name in enumerate(names):
-                x = getattr(self, name)(x, kmap, i)
+                x = getattr(self, name)(x, kmap, i, generator)
 
         # ---- decoder ------------------------------------------------------
         for s in reversed(range(len(self.dec_names))):
             x = getattr(self, f"dec{s}_up")(x, skips[s], sus[s])
             for i, name in enumerate(self.dec_names[s]):
-                x = getattr(self, name)(x, kmaps[s], i)
+                x = getattr(self, name)(x, kmaps[s], i, generator)
         return x.feat

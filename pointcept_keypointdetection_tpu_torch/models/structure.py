@@ -51,8 +51,11 @@ class PointBatch:
     def replace(self, **changes) -> "PointBatch":
         return dataclasses.replace(self, **changes)
 
-    def serialize(self, orders=ORDERS, depth: int = 16) -> "PointBatch":
-        """Stable sort by each order's code (`structure.py:94-135`, no shuffle)."""
+    def serialize(self, orders=ORDERS, depth: int = 16, generator: Optional[torch.Generator] = None) -> "PointBatch":
+        """Stable sort by each order's code (`structure.py:94-135`).
+
+        ``generator``: permute the order list with one draw from it (the
+        reference's ``shuffle_orders``); None keeps the given order."""
         check_code_bits(depth, self.num_samples)
         batch = self.batch
         iota = torch.arange(self.num_points, device=self.coord.device)
@@ -64,4 +67,8 @@ class PointBatch:
             inv[perm] = iota
             perms.append(perm)
             inverses.append(inv)
+        if generator is not None and len(orders) > 1:
+            # permuted on the host: the draw never goes to the card, so the host does not wait for it
+            shuffle = torch.randperm(len(orders), generator=generator).tolist()
+            perms, inverses = [perms[i] for i in shuffle], [inverses[i] for i in shuffle]
         return self.replace(serialized_order=torch.stack(perms), serialized_inverse=torch.stack(inverses))

@@ -30,11 +30,19 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: in
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per-segment max, 0 for an empty segment (`segment.py:31-37`).
+
+    As in JAX, the max starts from the dtype's minimum, which an empty
+    segment keeps and the last step turns into 0.  The gradient is shared
+    equally by the rows that tie for a segment's max, in JAX and here; a
+    max of 0 over rows is not mistaken for the empty segment's initial
+    value (torch's ``include_self=False`` would share the gradient with it)."""
     rows, ids = _kept(data, segment_ids, num_segments)
-    out = data.new_zeros((num_segments,) + data.shape[1:])
+    info = torch.finfo(data.dtype) if data.is_floating_point() else torch.iinfo(data.dtype)
+    init = data.new_full((num_segments,) + data.shape[1:], info.min)
     index = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(rows)
-    # include_self=False: a segment with rows takes their max; an empty one keeps 0
-    return out.scatter_reduce_(0, index, rows, reduce="amax", include_self=False)
+    out = init.scatter_reduce(0, index, rows, reduce="amax", include_self=True)
+    return torch.where(out == info.min, torch.zeros((), dtype=out.dtype, device=out.device), out)
 
 
 _REDUCERS = {"sum": segment_sum, "mean": segment_mean, "max": segment_max}

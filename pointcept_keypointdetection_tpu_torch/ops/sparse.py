@@ -12,8 +12,10 @@ Counterparts of ``pointcept_keypointdetection_tpu/ops/sparse.py``:
 * ``cell_packed_conv`` (`:412-481`): the k=5 stem as a gather of 27
   neighbor cells and one contraction with a parity-expanded weight.  Plain
   XLA in JAX, so plain PyTorch here.
-* ``sparse_conv`` (`:866-887`): every xCPE conv.  Its product runs the
-  hand-written gather-GEMM kernel on the card (``kernels/sparse_conv.py``).
+* ``sparse_conv`` (`:866-887`): every xCPE conv, through
+  ``SubmConvFunction`` (``kernels/sparse_conv.py``): kernel B3 forward and
+  for the input gradient, kernel B4 for the weight gradient on the card.
+  Autograd differentiates the bias and the stem.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.sparse_conv import subm_conv
+from ..kernels.sparse_conv import SubmConvFunction
 from .codes import CODE_MAX, code_fill_invalid, code_or_batch
 from .serialization import z_order_encode
 
@@ -186,7 +188,10 @@ def _cell_packed_slots(shift: int, spec: SparseConvSpec) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _cell_packed_slots_on(shift: int, spec: SparseConvSpec, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(_cell_packed_slots(shift, spec), device=device)
+    # a normal tensor even when first asked for under inference mode (a served request),
+    # so that a later training step may index with it
+    with torch.inference_mode(False):
+        return torch.as_tensor(_cell_packed_slots(shift, spec), device=device)
 
 
 def cell_packed_weight(weight: torch.Tensor, shift: int, spec: SparseConvSpec) -> torch.Tensor:
@@ -249,8 +254,10 @@ def sparse_conv(
 ) -> torch.Tensor:
     """out[i] = sum_d feat[neighbor_idx[i, d]] @ weight[d] (+ bias); [N, Cout].
 
-    A missing neighbor (index N) contributes zero."""
-    out = subm_conv(feat, kmap.neighbor_idx, weight.to(feat.dtype))
+    A missing neighbor (index N) contributes zero.  The map must be a
+    centered cube's in ``itertools.product`` order (every caller's), whose
+    mirror identity the backward uses."""
+    out = SubmConvFunction.apply(feat, kmap.neighbor_idx, weight.to(feat.dtype))
     if bias is not None:
         out = out + bias.to(feat.dtype)
     return out

@@ -6,13 +6,17 @@ reads: a config is a ``.py`` file evaluated into a dict; a ``_base_`` key
 (str or list of str, paths relative to the file) pulls in parent configs,
 deep-merged with the child winning; ``_delete_: True`` inside a dict replaces
 the base dict instead of merging.  Values are reachable as attributes.
+``merge_from_dict`` applies ``--options a.b.c=v`` overrides (``DictAction``
+parses them), and ``dump`` writes the merged config back as Python.
 """
 
 from __future__ import annotations
 
+import argparse
 import ast
 import copy
 import os
+import pprint
 from typing import Any, Dict, Optional
 
 BASE_KEY = "_base_"
@@ -112,5 +116,71 @@ class Config:
     def __getattr__(self, name):
         return getattr(self._cfg_dict, name)
 
+    def __setattr__(self, name, value):
+        self._cfg_dict[name] = value
+
     def __getitem__(self, key):
         return self._cfg_dict[key]
+
+    def __contains__(self, key):
+        return key in self._cfg_dict
+
+    def get(self, key, default=None):
+        return self._cfg_dict.get(key, default)
+
+    def merge_from_dict(self, options: Dict) -> None:
+        """Apply ``{"a.b.c": v}`` overrides: deep-merged, creating missing paths."""
+        option_cfg: Dict = {}
+        for full_key, value in options.items():
+            d = option_cfg
+            parts = full_key.split(".")
+            for sub in parts[:-1]:
+                d = d.setdefault(sub, {})
+            d[parts[-1]] = value
+        merged = _merge_a_into_b(option_cfg, _plain(self._cfg_dict))
+        object.__setattr__(self, "_cfg_dict", _to_config_dict(merged))
+
+    @property
+    def pretty_text(self) -> str:
+        return "".join(f"{key} = {pprint.pformat(_plain(value), width=100, sort_dicts=False)}\n"
+                       for key, value in self._cfg_dict.items())
+
+    def dump(self, file: str) -> None:
+        with open(file, "w") as f:
+            f.write(self.pretty_text)
+
+
+def _plain(value):
+    """ConfigDicts back to plain containers."""
+    if isinstance(value, dict):
+        return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_plain(v) for v in value)
+    return value
+
+
+class DictAction(argparse.Action):
+    """argparse action for ``KEY=VALUE`` pairs; a value is a Python literal
+    where it parses as one, true/false/none in any case, else a string."""
+
+    @staticmethod
+    def _parse_value(value: str):
+        try:
+            return ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            pass
+        lowered = value.lower()
+        if lowered in ("true", "false"):
+            return lowered == "true"
+        if lowered in ("none", "null"):
+            return None
+        return value
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        options = getattr(namespace, self.dest, None) or {}
+        for kv in values:
+            key, sep, value = kv.partition("=")
+            if not sep:
+                raise ValueError(f"Override '{kv}' is not in KEY=VALUE form")
+            options[key] = self._parse_value(value)
+        setattr(namespace, self.dest, options)
