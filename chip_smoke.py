@@ -6,28 +6,33 @@ GPU and hold its hand-written kernels against their plain versions.
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit;
-  2. build: nvcc builds every kernel of the paths from ``csrc/``;
+  2. build: nvcc builds every kernel of the paths from ``csrc/`` and prints
+     each kernel's registers, shared memory and spills;
   3. kernels: B1 (patch attention) and B3 (sparse conv) against their plain
      versions at the full-width PTv3 serving shapes, in f32 and bf16;
   4. serve: the server of ``configs/my_dataset/offset_keypoint_ptv3.py``
      (seeded weights) answers 3 POSTs of ~20k-point body-like clouds; each
-     kernel must launch once per Block per request;
+     kernel must launch once per Block and the conv rulebook be built once
+     per kernel map per request;
   5. card against CPU: one request's outputs with the same weights on the CPU
      (plain versions);
   6. training kernels: B1, B2 (attention backward), B3 and B4 (conv dW)
      against their plain versions at every training shape (batch 8) in f32
      and bf16, the conv kernels on the kernel maps of a batch of the
-     trainer's data pipeline, B2 at patch 1024, and both autograd Functions
-     against autograd of the plain forwards;
+     trainer's data pipeline, B2 at patch 1024, B3 and B4 on a map with
+     all-pad tiles and offsets without hits, B3 and B4 bit for bit run to run,
+     and both autograd Functions against autograd of the plain forwards;
   7. train: the config's trainer at full width, batch 8, on synthetic scenes,
      2 epochs of 2 steps with the evaluator and the checkpoint saver; each
-     step must launch B1 22, B2 22, B3 44 and B4 22 times;
+     step must launch B1 22, B2 22, B3 44 and B4 22 times and build 5 conv
+     rulebooks (one per kernel map);
   8. card against CPU: one training step (batch 1, no drop path, no order
      shuffling) with the same weights and batch on the CPU;
   9. times: request latency and step time (host clock), one step under
      torch.profiler, and each kernel, its plain version and a library
      yardstick at every serving and training shape, beside the bound (CUDA
-     events around a CUDA-graph replay, inputs read from HBM);
+     events around a CUDA-graph replay, inputs read from HBM), and the conv
+     rulebook's build per training map (host clock and device time);
  10. summary: the kernels line (per training step: launches, errors and
      times of the training levels), then ``{"ok": true, "device": ...}`` last.
 """
@@ -35,6 +40,7 @@ Phases, each fatal on failure:
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import tempfile
@@ -73,6 +79,8 @@ CLOUD_POINTS = 20000
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FFMA and bf16 tensor-core flop/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# TF32 tensor cores: B3 and B4 run f32 as 3xTF32, three TF32 products per f32 product
+PEAK_TF32 = 495e12
 L2_BYTES = 50 * 2**20
 # (atol, rtol); both sides compute in f32 and round the output once, so bf16 may differ by one ulp (2^-7 |x|)
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-3, 8e-3)}
@@ -205,6 +213,27 @@ def phase_device() -> str:
     return CARD
 
 
+def ptxas_summary(log: str):
+    """One line per kernel from nvcc's -Xptxas -v output: its name and template arguments, then
+    its registers and shared memory and its spills."""
+    kernel, spills = "?", ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:  # the mangled name: <length><name>I<template arguments>E...
+            kernel = mangled = entry.group(1)
+            end = mangled.find("_kernelI") + len("_kernel")
+            for start in range(end):  # the name is the one whose length prefix ends at `start`
+                if mangled[:start].endswith(str(end - start)):
+                    args = re.match(r"I(\w*?)E+v", mangled[end:])
+                    args = args.group(1).replace("13__nv_bfloat16", "bf16").replace("Li", ",") if args else ""
+                    kernel = f"{mangled[start:end]}<{'f32' + args[1:] if args.startswith('f') else args}>"
+                    break
+        elif "spill" in line:
+            spills = line.split(",", 1)[1].strip()
+        elif "Used" in line and "registers" in line:
+            yield f"{kernel}: {line.split(':', 1)[1].strip()}; {spills}"
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.build_all()
@@ -213,9 +242,8 @@ def phase_build() -> None:
         print(f"built {_build.library_path(name).name}")
         log = (_build.BUILD_DIR / f"{name}.log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+            for line in ptxas_summary(log.read_text()):
+                print(f"  ptxas {name}: {line}")
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, one process per source, in parallel)")
 
 
@@ -244,6 +272,54 @@ def check_conv(rng, idx, c, dtype) -> float:
                  sc.subm_conv(feat, idx, w), sc.subm_conv_plain(feat, idx, w), *TOL[dtype])
 
 
+def edge_case_map(rng, n: int = 1000):
+    """A surface map of n rows (not a multiple of the kernels' 64-row tile) whose 15% pad rows fill
+    whole tiles, with offsets 0 and 26 (a mirrored pair) hit by no row."""
+    idx = surface_kernel_map(rng, n, z_sorted=True, valid_frac=0.85)
+    idx[:, 0] = n
+    idx[:, 26] = n
+    return idx
+
+
+def check_conv_dw(rng, idx, c, dtype) -> float:
+    n = idx.shape[0]
+    feat, _ = conv_case(rng, idx, c, dtype)
+    g = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to("cuda", dtype)
+    ref = sc.subm_conv_dw_plain(feat, idx, g)
+    return check(f"B4 subm_conv_dw N={n} Cin=Cout={c} K=27 hits={int((idx < n).sum())} {str(dtype)[6:]}",
+                 sc.subm_conv_dw(feat, idx, g), ref, DW_TOL * ref.abs().max().item(), 0.0)
+
+
+def check_conv_bits(rng, idx, c, dtype) -> None:
+    """B3 and B4 twice on one input, one rulebook: equal bits (fixed summation orders, no atomics)."""
+    n = idx.shape[0]
+    feat, w = conv_case(rng, idx, c, dtype)
+    rb = sc.build_rulebook(idx)
+    runs = {"B3": lambda: sc.subm_conv(feat, idx, w, rb), "B4": lambda: sc.subm_conv_dw(feat, idx, feat, rb)}
+    for name, fn in runs.items():
+        if not torch.equal(fn(), fn()):
+            raise AssertionError(f"{name} N={n} C={c} {dtype}: two runs on one input differ")
+    print(f"B3, B4 N={n} C={c} {str(dtype)[6:]}: two runs give equal bits")
+
+
+def phase_conv_edge_cases(rng) -> None:
+    """B3 and B4 on a map with all-pad tiles, two offsets that no row hits and N not a multiple of
+    the tile, at C = 32 and C = 512, and at C = 40 (a partial step of 32 input channels and a partial
+    tile of 64 output columns), in f32 and bf16, and their bits run to run."""
+    idx = edge_case_map(rng)
+    rb = sc.build_rulebook(idx)
+    n = idx.shape[0]
+    print(f"edge-case map N={n}: {int((idx[:, 13] < n).sum())} valid rows, {rb.busy_tiles} busy of {-(-n // sc.TILE)} "
+          f"tiles, hits per offset {rb.hits}")
+    if rb.busy_tiles * sc.TILE > n - sc.TILE or rb.hits[0] or rb.hits[26]:
+        raise AssertionError("the edge-case map lacks an all-pad tile or an offset without hits")
+    for c in (32, 40, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_conv(rng, idx, c, dtype)
+            check_conv_dw(rng, idx, c, dtype)
+            check_conv_bits(rng, idx, c, dtype)
+
+
 def phase_kernels(cfg):
     """B1 and B3 against their plain versions at every serving shape; returns the surface maps."""
     rng = np.random.default_rng(0)
@@ -270,20 +346,23 @@ def phase_serve(cfg, predictor, clouds):
         url = f"http://127.0.0.1:{server.server_address[1]}/predict?cols=7"
         pa.launches = 0
         sc.launches = 0
+        sc.rulebook_builds = 0
+        levels = len(cfg.model.backbone_conf.enc_depths)  # one kernel map, so one rulebook, per level
         for i, cloud in enumerate(clouds):
-            before = (pa.launches, sc.launches)
+            before = (pa.launches, sc.launches, sc.rulebook_builds)
             t0 = time.perf_counter()
             req = urllib.request.Request(url, data=cloud.astype(np.float32).tobytes(), method="POST")
             with urllib.request.urlopen(req, timeout=600) as r:
                 reply = np.frombuffer(r.read(), np.float32)
             latencies.append((time.perf_counter() - t0) * 1e3)
-            delta = (pa.launches - before[0], sc.launches - before[1])
+            delta = (pa.launches - before[0], sc.launches - before[1], sc.rulebook_builds - before[2])
             print(f"request {i}: {cloud.shape[0]} points -> reply {reply.size} floats, "
-                  f"{latencies[-1]:.1f} ms, launches B1 +{delta[0]} B3 +{delta[1]}")
+                  f"{latencies[-1]:.1f} ms, launches B1 +{delta[0]} B3 +{delta[1]}, rulebooks built +{delta[2]}")
             if reply.shape != (18,) or not np.isfinite(reply).all():
                 raise AssertionError(f"request {i}: expected 6 x 3 finite floats, got {reply}")
-            if delta != (per_request, per_request):
-                raise AssertionError(f"request {i}: expected {per_request} launches of each kernel, got {delta}")
+            if delta != (per_request, per_request, levels):
+                raise AssertionError(f"request {i}: expected {per_request} launches of each kernel and {levels} "
+                                     f"rulebooks, got {delta}")
         counts = {"patch_attention_fwd": pa.launches, "subm_conv_fwd": sc.launches}
     finally:
         server.shutdown()
@@ -393,19 +472,16 @@ def phase_train_kernels(cfg, maps):
             errors["patch_attention_bwd"] = max(errors["patch_attention_bwd"], err)
     for n, c, heads, patch, _ in train_shapes(cfg):
         idx = maps[n]
-        hits = int((idx < n).sum())
         for dtype in (torch.float32, torch.bfloat16):
             found = {"patch_attention_fwd": check_attention(rng, n, heads, patch, dtype),
                      "patch_attention_bwd": check_attention_bwd(rng, n, heads, patch, dtype),
                      "subm_conv_fwd": check_conv(rng, idx, c, dtype)}
-            feat, _ = conv_case(rng, idx, c, dtype)
-            g = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to("cuda", dtype)
-            ref = sc.subm_conv_dw_plain(feat, idx, g)
-            found["subm_conv_dw"] = check(f"B4 subm_conv_dw N={n} Cin=Cout={c} K=27 hits={hits} {str(dtype)[6:]}",
-                                          sc.subm_conv_dw(feat, idx, g), ref, DW_TOL * ref.abs().max().item(), 0.0)
+            found["subm_conv_dw"] = check_conv_dw(rng, idx, c, dtype)
             if dtype == torch.float32:
                 for name, err in found.items():
                     errors[name] = max(errors[name], err)
+                check_conv_bits(rng, idx, c, dtype)
+    phase_conv_edge_cases(rng)
 
     # the Functions against autograd of the plain forwards, at the first training level
     n, c, heads, patch, _ = train_shapes(cfg)[0]
@@ -438,7 +514,7 @@ def launch_counts():
 
 
 def set_launch_counts_to_zero():
-    pa.launches = pa.bwd_launches = sc.launches = sc.dw_launches = 0
+    pa.launches = pa.bwd_launches = sc.launches = sc.dw_launches = sc.rulebook_builds = 0
 
 
 def train_config(save_path: str = ""):
@@ -454,6 +530,17 @@ def train_config(save_path: str = ""):
     return cfg
 
 
+def device_kernels(prof) -> dict:
+    """{kernel name: (device ms, launches)} of a torch.profiler run."""
+    by_kernel = {}
+    for evt in prof.events():
+        # a user annotation (the optimizer's step) spans kernels of its own on the device timeline
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            ms, cnt = by_kernel.get(evt.name, (0.0, 0))
+            by_kernel[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3, cnt + 1)
+    return by_kernel
+
+
 def profile_step(trainer, run_step) -> dict:
     """One training step under torch.profiler: device busy ms (the kernels' sum), idle share, kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -465,12 +552,7 @@ def profile_step(trainer, run_step) -> dict:
         run_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
-    for evt in prof.events():
-        # a user annotation (the optimizer's step) spans kernels of its own on the device timeline
-        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
-            ms, cnt = by_kernel.get(evt.name, (0.0, 0))
-            by_kernel[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3, cnt + 1)
+    by_kernel = device_kernels(prof)
     busy = sum(ms for ms, _ in by_kernel.values())
     out = dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1.0 - busy / wall_ms if busy else None,
                kernels=sum(cnt for _, cnt in by_kernel.values()))
@@ -489,26 +571,30 @@ def phase_train(cfg):
     blocks = sum(cfg.model.backbone_conf.enc_depths) + sum(cfg.model.backbone_conf.dec_depths)  # 22
     per_step = {"patch_attention_fwd": blocks, "patch_attention_bwd": blocks, "subm_conv_fwd": 2 * blocks,
                 "subm_conv_dw": blocks}
+    levels = len(cfg.model.backbone_conf.enc_depths)  # kernel maps per step: one rulebook each
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(train_config(tmp), device="cuda")
         steps, step_ms = [], []
         run_step = trainer.run_step
 
         def counted_step():
-            before = launch_counts()
+            before, built = launch_counts(), sc.rulebook_builds
             t0 = time.perf_counter()
             run_step()  # ends in the host reading the losses
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             delta = {k: v - before[k] for k, v in launch_counts().items()}
+            built = sc.rulebook_builds - built
             steps.append(delta)
             m = trainer.comm_info["metrics"]
             print(f"train step {len(steps)}: loss {m['loss']:.4f} (cls {m['cls_loss']:.4f}, reg {m['reg_loss']:.4f}), "
-                  f"{step_ms[-1]:.1f} ms, launches {delta} {stamp()}")
+                  f"{step_ms[-1]:.1f} ms, launches {delta}, rulebooks built {built} {stamp()}")
             if not all(np.isfinite(v) for v in m.values()):
                 raise AssertionError(f"step {len(steps)}: a loss is not finite: {m}")
             if delta != per_step:
                 raise AssertionError(f"step {len(steps)}: expected launches {per_step}, got {delta}")
+            if built != levels:
+                raise AssertionError(f"step {len(steps)}: expected {levels} rulebooks (one per map), built {built}")
 
         trainer.run_step = counted_step
         before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
@@ -585,14 +671,17 @@ def input_sets(make, nbytes: int):
     return [make() for _ in range(copies_for(nbytes))]
 
 
-def time_kernel(name, cases, kernel, plain, library, nbytes, flops, dtype):
-    """One kernel's device ms beside its plain version's, the library call's and the bound."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+def time_kernel(name, cases, kernel, plain, library, nbytes, flops, dtype, peak=None, unit="f32 FFMA"):
+    """One kernel's device ms beside its plain version's, the library call's and the bound: the larger
+    of ``nbytes`` at the HBM rate and ``flops`` at ``peak`` (default: the dtype's rate)."""
+    if dtype == torch.bfloat16:
+        unit = "bf16 tensor cores"
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     row = dict(ms=cuda_ms(kernel, cases), plain_ms=cuda_ms(plain, cases), library_ms=cuda_ms(library, cases),
                bound_ms=max(t_bytes, t_ops), t_bytes=t_bytes, t_ops=t_ops)
     print(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
           f"bound {row['bound_ms']:.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes / 1e6:.2f} MB, "
-          f"{flops / 1e9:.3f} GFLOP) {stamp()}")
+          f"{flops / 1e9:.3f} GFLOP at {unit}) {stamp()}")
     return row
 
 
@@ -633,7 +722,10 @@ def time_attention(rng, n, heads, patch, dtype, backward: bool):
 
 
 def time_conv(rng, idx, c, dtype, dw: bool):
-    """B3 (or with ``dw`` B4), its plain version and the gather + torch.matmul on the same inputs."""
+    """B3 (or with ``dw`` B4), its plain version and the gather + torch.matmul on the same inputs.
+    Each input set has its own copy of the map and that copy's rulebook, built before the timing
+    (a build reads the host, which a CUDA graph cannot hold); ``time_rulebook`` times the builds.
+    f32 runs as 3xTF32, so its operations bound is 3 TF32 products per f32 product at the TF32 rate."""
     n = idx.shape[0]
     size = torch.tensor([], dtype=dtype).element_size()
     hits = int((idx < n).sum())
@@ -642,21 +734,62 @@ def time_conv(rng, idx, c, dtype, dw: bool):
         feat, w = conv_case(rng, idx, c, dtype)
         g = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to("cuda", dtype)
         i = idx.clone()
-        return feat, i, w, g, torch.cat([feat, feat.new_zeros(1, c)]), i.long(), w.reshape(27 * c, c)
+        fp = torch.cat([feat, feat.new_zeros(1, c)])
+        return feat, i, w, g, fp, i.long(), w.reshape(27 * c, c), sc.build_rulebook(i)
 
+    flops = 2.0 * hits * c * c
+    ops = dict(flops=flops)
+    if dtype == torch.float32:
+        ops = dict(flops=3 * flops, peak=PEAK_TF32, unit="3xTF32, 495 TFLOP/s")
     if not dw:
         nbytes = (n * c * 2 + 27 * c * c) * size + idx.numel() * 4
         return time_kernel("B3", input_sets(make, nbytes),
-                           lambda f, i, w, g, fp, il, w2: sc.subm_conv(f, i, w),
-                           lambda f, i, w, g, fp, il, w2: sc.subm_conv_plain(f, i, w),
-                           lambda f, i, w, g, fp, il, w2: torch.matmul(fp[il].reshape(n, 27 * c), w2),
-                           nbytes, 2.0 * hits * c * c, dtype)
+                           lambda f, i, w, g, fp, il, w2, rb: sc.subm_conv(f, i, w, rb),
+                           lambda f, i, w, g, fp, il, w2, rb: sc.subm_conv_plain(f, i, w),
+                           lambda f, i, w, g, fp, il, w2, rb: torch.matmul(fp[il].reshape(n, 27 * c), w2),
+                           nbytes, dtype=dtype, **ops)
     nbytes = n * c * 2 * size + idx.numel() * 4 + 27 * c * c * 4
     return time_kernel("B4", input_sets(make, nbytes),
-                       lambda f, i, w, g, fp, il, w2: sc.subm_conv_dw(f, i, g),
-                       lambda f, i, w, g, fp, il, w2: sc.subm_conv_dw_plain(f, i, g),
-                       lambda f, i, w, g, fp, il, w2: torch.matmul(fp[il].permute(1, 2, 0), g),
-                       nbytes, 2.0 * hits * c * c, dtype)
+                       lambda f, i, w, g, fp, il, w2, rb: sc.subm_conv_dw(f, i, g, rb),
+                       lambda f, i, w, g, fp, il, w2, rb: sc.subm_conv_dw_plain(f, i, g),
+                       lambda f, i, w, g, fp, il, w2, rb: torch.matmul(fp[il].permute(1, 2, 0), g),
+                       nbytes, dtype=dtype, **ops)
+
+
+def time_rulebook(idx, repeats: int = 5) -> dict:
+    """One rulebook build: host-clock ms (plain torch ops and one read back to the host, so the
+    card's queue is empty at its end), median of ``repeats``; the device ms of its kernels (one
+    more build under torch.profiler); its bytes bound: the map read once, the permutation, the
+    offset-major map, the tile masks and the pair lists written once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, k = idx.shape
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rb = sc.build_rulebook(idx)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sc.build_rulebook(idx)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    nbytes = 4 * (idx.numel() + rb.perm.numel() + rb.nbr.numel() + rb.tile_mask.numel() + 2 * rb.pair_in.numel()
+                  + rb.pair_start.numel())
+    row = dict(ms=statistics.median(times), device_ms=sum(ms for ms, _ in kernels.values()),
+               bound_ms=nbytes / PEAK_BYTES * 1e3)
+    # B3's dense work, busy tiles x their offsets x 64 rows, per hit; beside it the same in the map's own row order
+    hit = torch.cat([idx < n, idx.new_zeros((-(-n // sc.TILE) * sc.TILE - n, k), dtype=torch.bool)])
+    unsorted = int(hit.reshape(-1, sc.TILE, k).any(1).sum()) * sc.TILE / max(1, sum(rb.hits))
+    by_mask = sum(bin(m).count("1") for m in rb.tile_mask.tolist()) * sc.TILE / max(1, sum(rb.hits))
+    print(f"  rulebook build N={n}: {row['ms']:.4f} ms (host clock, median of {repeats}: "
+          f"{[round(t, 4) for t in times]}), device {row['device_ms']:.4f} ms in "
+          f"{sum(c for _, c in kernels.values())} kernels, bound {row['bound_ms']:.4f} ms "
+          f"(bytes: {nbytes / 1e6:.2f} MB); "
+          f"{rb.busy_tiles} busy tiles of {-(-n // sc.TILE)}, {sum(rb.hits)} hits; B3's tile rows x offsets per "
+          f"hit {by_mask:.3f} (rows in the map's order: {unsorted:.3f}) {stamp()}")
+    return row
 
 
 def phase_times(cfg, latencies, serve_maps, train_maps, errors, train):
@@ -689,6 +822,11 @@ def phase_times(cfg, latencies, serve_maps, train_maps, errors, train):
         print(f"{name} per request (f32, sum over its launches): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms {stamp()}")
 
+    print("rulebook builds, one per training kernel map and step:")
+    rows = [time_rulebook(idx) for idx in train_maps.values()]
+    rulebook = {key: sum(row[key] for row in rows) for key in ("ms", "device_ms", "bound_ms")}
+    print(f"rulebook builds per training step ({len(train_maps)} maps): {rulebook['ms']:.4f} ms (host clock), "
+          f"device {rulebook['device_ms']:.4f} ms, bound {rulebook['bound_ms']:.4f} ms {stamp()}")
     per_step = {}
     launches = {"patch_attention_fwd": 1, "patch_attention_bwd": 1, "subm_conv_fwd": 2, "subm_conv_dw": 1}
     for n, c, heads, patch, depth in train_shapes(cfg):
@@ -701,6 +839,12 @@ def phase_times(cfg, latencies, serve_maps, train_maps, errors, train):
             if dtype == torch.float32:
                 for name, row in rows.items():
                     add(per_step, name, row, launches[name] * depth)
+    conv = per_step["subm_conv_fwd"]["ms"] + per_step["subm_conv_dw"]["ms"]
+    print(f"sparse conv per training step (f32, device): B3 {per_step['subm_conv_fwd']['ms']:.4f} + B4 "
+          f"{per_step['subm_conv_dw']['ms']:.4f} + rulebook builds {rulebook['device_ms']:.4f} = "
+          f"{conv + rulebook['device_ms']:.4f} ms (builds on the host clock: {rulebook['ms']:.4f} ms); bounds "
+          f"{per_step['subm_conv_fwd']['bound_ms']:.4f} + {per_step['subm_conv_dw']['bound_ms']:.4f} + "
+          f"{rulebook['bound_ms']:.4f} ms {stamp()}")
     kernels = []
     step = train["steps"][-1]  # every step launched the same counts (phase_train checks)
     for name, t in per_step.items():

@@ -1,34 +1,38 @@
 """Submanifold sparse conv: kernels B3 (forward) and B4 (weight gradient),
-each beside its plain version, and the autograd Function that joins them.
+each beside its plain version, the rulebook that sizes their work, and the
+autograd Function that joins them.
 
 ``subm_conv`` replaces the Pallas TPU kernel
 ``pointcept_keypointdetection_tpu/ops/pallas/sparse_conv.py::_conv_kernel``
 (via ``fused_subm_conv``, reached from ``ops/sparse.py::_conv_apply``):
 out[i] = sum_d feat_pad[idx[i, d]] @ W[d], where index N selects a zero row.
-On a CUDA tensor it launches the hand-written gather-GEMM kernel
-``csrc/sparse_conv.cu`` (gathered rows and W tiles in shared memory, f32
-FFMA accumulation in registers, no im2col in device memory; where the output
-has too few tiles to fill the card, the offsets are split across blocks into
-an f32 workspace and summed by a second kernel); on a CPU tensor it runs
-``subm_conv_plain``, the gather plus matmul of ``_conv_apply``.  It is bound
-by its 2*nnz*Cin*Cout flops at the f32 rate.
+On a CUDA tensor it launches the hand-written gather-GEMM kernel of
+``csrc/sparse_conv.cu`` over the map's ``Rulebook``: rows sorted by their hit
+mask, only the busy row tiles and, per tile, only the offsets it hits; the
+gathered rows and W tiles stream through a ``cp.async`` ring in shared
+memory into tensor-core products (bf16 ``mma.sync``; f32 as 3xTF32).  Where
+the busy tiles are too few to fill the card, the offsets are split across
+blocks into an f32 workspace and summed by a second kernel.  On a CPU tensor
+it runs ``subm_conv_plain``, the gather plus matmul of ``_conv_apply``.
 
 ``subm_conv_dw`` replaces ``_dw_kernel`` (via ``fused_subm_conv_dw``, from
 ``ops/sparse.py::_subm_conv_sym_bwd``): dW[d] = sum_i feat_pad[idx[i, d]]^T
 g[i] in f32.  On a CUDA tensor it launches the second kernel of
-``csrc/sparse_conv.cu`` (the N rows split across blocks, sentinel rows
-skipped, splits summed in a fixed order by the kernel B3 uses for its
-offset splits); on a CPU tensor ``subm_conv_dw_plain``.
+``csrc/sparse_conv.cu``, which walks the rulebook's per-offset hit pairs
+(split across blocks by hits, the splits summed in a fixed order); on a CPU
+tensor ``subm_conv_dw_plain``.
 
 ``SubmConvFunction`` is ``_subm_conv_sym``'s ``custom_vjp``: the forward is
-B3, dfeat is B3 again with the mirrored weight flip(W, 0)^T (for a centered
-cube in ``itertools.product`` order offset d's opposite is K-1-d, so
-map[i][d] = j exactly when map[j][K-1-d] = i), and dW is B4.
+B3, dfeat is B3 again with the mirrored weight flip(W, 0)^T over the same
+map and rulebook (for a centered cube in ``itertools.product`` order offset
+d's opposite is K-1-d, so map[i][d] = j exactly when map[j][K-1-d] = i), and
+dW is B4.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,27 +41,107 @@ from . import _build
 # Launches of the CUDA kernels in this process (B3, B4); the plain versions do not count.
 launches = 0
 dw_launches = 0
+# Rulebooks built in this process (one per kernel map that reached a kernel).
+rulebook_builds = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64  # the kernels' BM = BN: output rows and columns per block
+TILE = 64  # rows of a rulebook tile: B3's output rows per block
+MAX_OFFSETS = 31  # offsets a tile's hit mask (int32) can hold
 BLOCKS_PER_SM = 4  # blocks in flight per SM that the offset and row splits aim for
-DW_CHUNK = 256  # rows of one compaction step of the dW kernel: a split holds whole chunks
+DW_MIN_HITS = 256  # B4: hit pairs a row split holds at least (eight of the kernel's 32-pair steps)
 
 
-def offset_splits(n: int, k: int, cout: int, sms: int) -> int:
-    """Groups of offsets to spread over blocks so that ~BLOCKS_PER_SM blocks run per SM."""
-    tiles = -(-n // TILE) * -(-cout // TILE)
-    splits = min(k, max(1, -(-BLOCKS_PER_SM * sms // tiles)))
+class Rulebook(NamedTuple):
+    """What the kernels need to know of a kernel map ``idx`` int32 [N, K]
+    (N = no neighbour), built once per map by ``build_rulebook``.
+
+    Rows are sorted by their K-bit hit mask (bit d: the row has a neighbour
+    at offset d), descending and stable, so rows with the same mask sit
+    together and rows with no hit come last.  ``perm[p]`` is the row at
+    sorted position p.  ``nbr[d, p] = idx[perm[p], d]``, offset-major so
+    that a tile's neighbours at one offset are contiguous; positions past N
+    hold N.  A tile is TILE sorted positions; the first ``busy_tiles`` hold
+    every row with a hit, and ``tile_mask[t]`` has bit d set when a row of
+    tile t hits offset d.
+    ``pair_in``/``pair_out`` list the hits offset by offset (feature row,
+    output row), offset d's in ``[pair_start[d], pair_start[d + 1])``;
+    ``hits`` holds each offset's count on the host."""
+
+    perm: torch.Tensor  # int32 [N]
+    nbr: torch.Tensor  # int32 [K, ceil(N / TILE) * TILE]
+    tile_mask: torch.Tensor  # int32 [ceil(N / TILE)]
+    pair_in: torch.Tensor  # int32 [H]
+    pair_out: torch.Tensor  # int32 [H]
+    pair_start: torch.Tensor  # int32 [K + 1]
+    busy_tiles: int
+    hits: Tuple[int, ...]
+
+
+def build_rulebook(idx: torch.Tensor) -> Rulebook:
+    """The ``Rulebook`` of ``idx`` int32 [N, K], with plain torch ops on its device.
+
+    Reads one small tensor back to the host (the busy tiles and the hits per
+    offset, which size the kernels' grids)."""
+    global rulebook_builds
+    if idx.dtype != torch.int32 or idx.dim() != 2:
+        raise ValueError(f"idx must be int32 [N, K], got {idx.dtype} {tuple(idx.shape)}")
+    n, k = idx.shape
+    if k > MAX_OFFSETS:
+        raise ValueError(f"a rulebook holds at most {MAX_OFFSETS} offsets, got {k}")
+    dev = idx.device
+    tiles = -(-n // TILE)
+    hit = idx < n
+    bits = torch.arange(k, device=dev, dtype=torch.int64)
+    mask = (hit.to(torch.int64) << bits).sum(1)
+    perm = torch.sort(mask, descending=True, stable=True).indices  # rows with no hit (mask 0) last
+    pad = tiles * TILE - n
+    nbr = torch.cat([idx[perm].t(), idx.new_full((k, pad), n)], 1)
+    hit_sorted = torch.cat([hit[perm], hit.new_zeros((pad, k))]).reshape(tiles, TILE, k).any(1)
+    tile_mask = (hit_sorted.to(torch.int64) << bits).sum(1).to(torch.int32)
+    d, rows = hit.t().nonzero(as_tuple=True)  # offset-major, rows ascending within an offset
+    counts = torch.bincount(d, minlength=k)
+    host = torch.cat([(mask != 0).sum().reshape(1), counts]).tolist()
+    rulebook_builds += 1
+    return Rulebook(
+        perm=perm.to(torch.int32),
+        nbr=nbr,
+        tile_mask=tile_mask,
+        pair_in=idx[rows, d],
+        pair_out=rows.to(torch.int32),
+        pair_start=torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32),
+        busy_tiles=-(-host[0] // TILE),
+        hits=tuple(host[1:]),
+    )
+
+
+def conv_tile_cols(cout: int) -> int:
+    """B3's output columns per block: 32 at Cout <= 32, else 64."""
+    return 32 if cout <= 32 else 64
+
+
+def offset_splits(busy_tiles: int, k: int, cout: int, sms: int) -> int:
+    """Groups of offsets to spread over blocks so that ~BLOCKS_PER_SM blocks run per SM,
+    counted over the busy tiles only."""
+    blocks = busy_tiles * -(-cout // conv_tile_cols(cout))
+    if blocks == 0:
+        return 1
+    splits = min(k, max(1, -(-BLOCKS_PER_SM * sms // blocks)))
     return -(-k // -(-k // splits))  # no empty group: ceil(k / offsets per group)
 
 
-def row_splits(n: int, k: int, cin: int, cout: int, sms: int):
-    """(splits, rows per split) of the dW kernel's N rows, so that ~BLOCKS_PER_SM blocks run per SM."""
-    tiles = k * -(-cin // TILE) * -(-cout // TILE)
-    chunks = max(1, -(-n // DW_CHUNK))
-    splits = min(chunks, max(1, -(-BLOCKS_PER_SM * sms // tiles)), 65535 // k)
-    rows = -(-chunks // splits) * DW_CHUNK
-    return max(1, -(-n // rows)), rows
+def dw_tile(cin: int, cout: int) -> int:
+    """B4's dW tile side (Cin rows, Cout columns): 32 at C <= 32, else 64."""
+    return 32 if max(cin, cout) <= 32 else 64
+
+
+def row_splits(hits: Sequence[int], cin: int, cout: int, sms: int) -> int:
+    """Runs each offset's hit pairs are cut into, so that ~BLOCKS_PER_SM blocks run per SM
+    and no run of the busiest offset holds fewer than DW_MIN_HITS pairs."""
+    k = len(hits)
+    t = dw_tile(cin, cout)
+    blocks = k * -(-cin // t) * -(-cout // t)
+    want = -(-BLOCKS_PER_SM * sms // blocks)
+    return max(1, min(want, -(-max(hits, default=0) // DW_MIN_HITS), 65535 // k))
 
 
 def _check_map(feat: torch.Tensor, idx: torch.Tensor) -> None:
@@ -81,6 +165,22 @@ def _check(feat: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> None:
         raise ValueError(f"feat on {feat.device} but weight on {weight.device}")
 
 
+def _checked_rulebook(name: str, idx: torch.Tensor, rulebook: Optional[Rulebook], *tensors: torch.Tensor) -> Rulebook:
+    """What the kernels take: contiguous 16-byte aligned rows of a multiple of 8 channels, at most
+    MAX_OFFSETS offsets.  Returns ``rulebook``, or the map's own if none is given."""
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {tensors[0].device}")
+    if not (idx.is_contiguous() and all(t.is_contiguous() for t in tensors)):
+        raise ValueError(f"the CUDA kernel {name} takes contiguous tensors")
+    if any(t.shape[-1] % 8 or t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the CUDA kernel {name} takes channels in multiples of 8 on 16-byte aligned rows")
+    if rulebook is None:
+        return build_rulebook(idx)
+    if rulebook.perm.shape[0] != idx.shape[0] or rulebook.nbr.shape[0] != idx.shape[1]:
+        raise ValueError(f"the rulebook is of another map than idx {tuple(idx.shape)}")
+    return rulebook
+
+
 def subm_conv_plain(feat: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Gather + matmul in f32: [N, K*Cin] @ [K*Cin, Cout] -> [N, Cout]."""
     n, cin = feat.shape
@@ -90,28 +190,31 @@ def subm_conv_plain(feat: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor)
     return (gathered @ weight.float().reshape(k * cin, cout)).to(feat.dtype)
 
 
-def subm_conv(feat: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """feat [N, Cin], idx int32 [N, K] in [0, N], weight [K, Cin, Cout] -> [N, Cout]."""
+def subm_conv(feat: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
+              rulebook: Optional[Rulebook] = None) -> torch.Tensor:
+    """feat [N, Cin], idx int32 [N, K] in [0, N], weight [K, Cin, Cout] -> [N, Cout].
+
+    On the card the kernel walks ``rulebook`` (``build_rulebook(idx)``; built
+    here when not given)."""
     global launches
     _check(feat, idx, weight)
     if feat.device.type == "cpu":
         return subm_conv_plain(feat, idx, weight)
-    if feat.device.type != "cuda":
-        raise ValueError(f"subm_conv runs on cpu or cuda, not {feat.device}")
-    if not (feat.is_contiguous() and idx.is_contiguous() and weight.is_contiguous()):
-        raise ValueError("the CUDA kernel takes contiguous feat, idx and weight")
+    rb = _checked_rulebook("subm_conv", idx, rulebook, feat, weight)
     n, cin = feat.shape
     k, _, cout = weight.shape
-    lib = _build.load("sparse_conv")
-    fn = lib.subm_conv_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = _build.load("sparse_conv").subm_conv_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    splits = offset_splits(n, k, cout, torch.cuda.get_device_properties(feat.device).multi_processor_count)
+    sms = torch.cuda.get_device_properties(feat.device).multi_processor_count
+    splits = offset_splits(rb.busy_tiles, k, cout, sms)
     out = torch.empty((n, cout), dtype=feat.dtype, device=feat.device)
-    workspace = torch.empty((splits, n, cout) if splits > 1 else (0,), dtype=torch.float32, device=feat.device)
+    shape = (splits, rb.busy_tiles * TILE, cout) if splits > 1 else (0,)
+    workspace = torch.empty(shape, dtype=torch.float32, device=feat.device)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
-    rc = fn(feat.data_ptr(), idx.data_ptr(), weight.data_ptr(), out.data_ptr(), workspace.data_ptr() or None,
-            n, k, cin, cout, splits, _DTYPES[feat.dtype], stream)
+    rc = fn(feat.data_ptr(), weight.data_ptr(), out.data_ptr(), workspace.data_ptr() or None, rb.perm.data_ptr(),
+            rb.nbr.data_ptr(), rb.tile_mask.data_ptr(), n, k, cin, cout, rb.busy_tiles, splits,
+            _DTYPES[feat.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"subm_conv_fwd failed: CUDA error {rc}")
     launches += 1
@@ -125,8 +228,11 @@ def subm_conv_dw_plain(feat: torch.Tensor, idx: torch.Tensor, grad: torch.Tensor
     return torch.einsum("nkc,nd->kcd", feat_pad[idx.long()], grad.float())
 
 
-def subm_conv_dw(feat: torch.Tensor, idx: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
-    """feat [N, Cin], idx int32 [N, K] in [0, N], grad [N, Cout] of feat's dtype -> dW f32 [K, Cin, Cout]."""
+def subm_conv_dw(feat: torch.Tensor, idx: torch.Tensor, grad: torch.Tensor,
+                 rulebook: Optional[Rulebook] = None) -> torch.Tensor:
+    """feat [N, Cin], idx int32 [N, K] in [0, N], grad [N, Cout] of feat's dtype -> dW f32 [K, Cin, Cout].
+
+    On the card the kernel walks ``rulebook``'s hit pairs (built here when not given)."""
     global dw_launches
     n, cin = feat.shape
     k = idx.shape[1]
@@ -137,21 +243,18 @@ def subm_conv_dw(feat: torch.Tensor, idx: torch.Tensor, grad: torch.Tensor) -> t
         raise ValueError(f"feat on {feat.device} but grad on {grad.device}")
     if feat.device.type == "cpu":
         return subm_conv_dw_plain(feat, idx, grad)
-    if feat.device.type != "cuda":
-        raise ValueError(f"subm_conv_dw runs on cpu or cuda, not {feat.device}")
-    if not (feat.is_contiguous() and idx.is_contiguous() and grad.is_contiguous()):
-        raise ValueError("the CUDA kernel takes contiguous feat, idx and grad")
+    rb = _checked_rulebook("subm_conv_dw", idx, rulebook, feat, grad)
     cout = grad.shape[1]
     fn = _build.load("sparse_conv").subm_conv_dw
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    splits, rows = row_splits(n, k, cin, cout, torch.cuda.get_device_properties(feat.device).multi_processor_count)
+    splits = row_splits(rb.hits, cin, cout, torch.cuda.get_device_properties(feat.device).multi_processor_count)
     dw = torch.empty((k, cin, cout), dtype=torch.float32, device=feat.device)
     workspace = torch.empty((splits, k, cin, cout) if splits > 1 else (0,), dtype=torch.float32,
                             device=feat.device)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
-    rc = fn(feat.data_ptr(), idx.data_ptr(), grad.data_ptr(), dw.data_ptr(), workspace.data_ptr() or None,
-            n, k, cin, cout, splits, rows, _DTYPES[feat.dtype], stream)
+    rc = fn(feat.data_ptr(), grad.data_ptr(), dw.data_ptr(), workspace.data_ptr() or None, rb.pair_in.data_ptr(),
+            rb.pair_out.data_ptr(), rb.pair_start.data_ptr(), n, k, cin, cout, splits, _DTYPES[feat.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"subm_conv_dw failed: CUDA error {rc}")
     dw_launches += 1
@@ -166,17 +269,22 @@ def mirrored_weight(weight: torch.Tensor) -> torch.Tensor:
 class SubmConvFunction(torch.autograd.Function):
     """``subm_conv`` with the scatter-free backward of ``_subm_conv_sym``:
     dfeat = subm_conv(g, idx, mirrored W) (kernel B3), dW = subm_conv_dw
-    (kernel B4) cast to W's dtype.  ``idx`` gets no gradient."""
+    (kernel B4) cast to W's dtype, all three over one ``rulebook`` (built
+    here on the card when not given).  ``idx`` gets no gradient."""
 
     @staticmethod
-    def forward(ctx, feat, idx, weight):
+    def forward(ctx, feat, idx, weight, rulebook=None):
+        if rulebook is None and feat.device.type == "cuda":
+            rulebook = build_rulebook(idx)
         ctx.save_for_backward(feat, idx, weight)
-        return subm_conv(feat, idx, weight)
+        ctx.rulebook = rulebook
+        return subm_conv(feat, idx, weight, rulebook)
 
     @staticmethod
     def backward(ctx, grad):
         feat, idx, weight = ctx.saved_tensors
+        rb = ctx.rulebook
         grad = grad.contiguous()
-        dfeat = subm_conv(grad, idx, mirrored_weight(weight)) if ctx.needs_input_grad[0] else None
-        dweight = subm_conv_dw(feat, idx, grad).to(weight.dtype) if ctx.needs_input_grad[2] else None
-        return dfeat, None, dweight
+        dfeat = subm_conv(grad, idx, mirrored_weight(weight), rb) if ctx.needs_input_grad[0] else None
+        dweight = subm_conv_dw(feat, idx, grad, rb).to(weight.dtype) if ctx.needs_input_grad[2] else None
+        return dfeat, None, dweight, None

@@ -14,7 +14,8 @@ Counterparts of ``pointcept_keypointdetection_tpu/ops/sparse.py``:
   XLA in JAX, so plain PyTorch here.
 * ``sparse_conv`` (`:866-887`): every xCPE conv, through
   ``SubmConvFunction`` (``kernels/sparse_conv.py``): kernel B3 forward and
-  for the input gradient, kernel B4 for the weight gradient on the card.
+  for the input gradient, kernel B4 for the weight gradient on the card,
+  all over the ``KernelMap``'s rulebook, built once per map.
   Autograd differentiates the bias and the stem.
 """
 
@@ -27,7 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.sparse_conv import SubmConvFunction
+from ..kernels.sparse_conv import Rulebook, SubmConvFunction, build_rulebook
 from .codes import CODE_MAX, code_fill_invalid, code_or_batch
 from .serialization import z_order_encode
 
@@ -46,8 +47,23 @@ class SparseConvSpec(NamedTuple):
         return SparseConvSpec(offsets=tuple(itertools.product(range(-r, r + 1), repeat=3)))
 
 
-class KernelMap(NamedTuple):
-    neighbor_idx: torch.Tensor  # int32[N, K]; N = missing neighbor
+class KernelMap:
+    """The neighbor rows of a conv neighborhood, and the kernels' rulebook of them.
+
+    ``rulebook()`` builds the ``Rulebook`` (``kernels/sparse_conv.py``) at its
+    first call and keeps it: every conv over this map (forward, input
+    gradient and weight gradient of every Block of a level) walks the same one."""
+
+    __slots__ = ("neighbor_idx", "_rulebook")
+
+    def __init__(self, neighbor_idx: torch.Tensor):
+        self.neighbor_idx = neighbor_idx  # int32[N, K]; N = missing neighbor
+        self._rulebook: Optional[Rulebook] = None
+
+    def rulebook(self) -> Rulebook:
+        if self._rulebook is None:
+            self._rulebook = build_rulebook(self.neighbor_idx)
+        return self._rulebook
 
 
 class SortedVoxelIndex(NamedTuple):
@@ -256,8 +272,10 @@ def sparse_conv(
 
     A missing neighbor (index N) contributes zero.  The map must be a
     centered cube's in ``itertools.product`` order (every caller's), whose
-    mirror identity the backward uses."""
-    out = SubmConvFunction.apply(feat, kmap.neighbor_idx, weight.to(feat.dtype))
+    mirror identity the backward uses.  On the card the kernels walk the
+    map's rulebook."""
+    rulebook = kmap.rulebook() if feat.device.type == "cuda" else None
+    out = SubmConvFunction.apply(feat, kmap.neighbor_idx, weight.to(feat.dtype), rulebook)
     if bias is not None:
         out = out + bias.to(feat.dtype)
     return out

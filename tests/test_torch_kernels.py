@@ -1,6 +1,7 @@
 """The kernels' plain versions against the Pallas kernels (interpret mode),
-the autograd Functions against autograd of the plain forwards, and the
-wrappers' CPU dispatch and argument checks.
+the autograd Functions against autograd of the plain forwards, the sparse
+conv's rulebook and a plain emulation of the conv kernels' traversal of it,
+and the wrappers' CPU dispatch, split policies and argument checks.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 each against its plain version there.  Tolerances: 2e-4 for attention
@@ -17,6 +18,7 @@ import pytest
 import torch
 import torch_parity  # noqa: F401  (one torch thread)
 
+from pointcept_keypointdetection_tpu.ops import sparse as jsparse
 from pointcept_keypointdetection_tpu.ops.pallas.sparse_conv import fused_subm_conv, fused_subm_conv_dw
 from pointcept_keypointdetection_tpu_torch.kernels import patch_attention as pa
 from pointcept_keypointdetection_tpu_torch.kernels import sparse_conv as sc
@@ -172,25 +174,162 @@ def test_wrappers_run_plain_on_cpu(dtype):
         torch.testing.assert_close(out.float(), ref, rtol=1e-2, atol=1e-2)
 
 
+# The trainer's kernel maps, one per level (batch 8): rows, valid rows (all hit their centre), hits, channels.
+TRAINING_MAPS = [(65536, 65536, 554472, 32), (65536, 65536, 554472, 64), (32768, 26265, 331137, 64),
+                 (16384, 7100, 95788, 128), (8192, 1771, 23813, 256), (4096, 414, 5374, 512)]
+
+
 def test_conv_offset_splits_at_the_slice_shapes():
-    """Few output tiles (deep stages) spread the 27 offsets over more blocks; many tiles keep one group."""
-    shapes = [(8192, 32), (8192, 64), (4096, 64), (2048, 128), (1024, 256), (512, 512)]
-    got = [sc.offset_splits(n, 27, c, sms=132) for n, c in shapes]
-    assert got == [5, 5, 9, 9, 9, 9]
-    assert sc.offset_splits(102400, 27, 64, sms=132) == 1
-    for n, c in shapes:  # every group holds at least one offset
-        splits = sc.offset_splits(n, 27, c, sms=132)
+    """Few busy tiles (deep stages) spread the 27 offsets over more blocks; many keep one group.
+    The split count follows the busy tiles, not N: enc4's 414 valid rows fill 7 of its 64 tiles."""
+    busy = [-(-valid // sc.TILE) for _, valid, _, _ in TRAINING_MAPS]
+    assert busy == [1024, 1024, 411, 111, 28, 7]
+    got = [sc.offset_splits(b, 27, c, sms=132) for b, (_, _, _, c) in zip(busy, TRAINING_MAPS)]
+    assert got == [1, 1, 2, 3, 5, 9]
+    assert [sc.conv_tile_cols(c) for *_, c in TRAINING_MAPS] == [32, 64, 64, 64, 64, 64]
+    assert sc.offset_splits(0, 27, 64, sms=132) == 1  # no busy tile: only the zero rows
+    for b, (*_, c) in zip(busy, TRAINING_MAPS):  # every group holds at least one offset
+        splits = sc.offset_splits(b, 27, c, sms=132)
         assert (splits - 1) * -(-27 // splits) < 27
 
 
 def test_conv_dw_row_splits_at_the_training_shapes():
-    """The dW kernel's N rows split so that ~4 blocks run per SM, in whole chunks, none empty."""
-    shapes = [(65536, 32), (65536, 64), (32768, 64), (16384, 128), (8192, 256), (4096, 512)]
-    got = [sc.row_splits(n, 27, c, c, sms=132) for n, c in shapes]
-    assert [s for s, _ in got] == [20, 20, 19, 5, 2, 1]
-    for (n, _), (splits, rows) in zip(shapes, got):
-        assert rows % sc.DW_CHUNK == 0 and (splits - 1) * rows < n <= splits * rows
-    assert sc.row_splits(100, 27, 8, 8, sms=132) == (1, 256)
+    """Each offset's hit pairs split so that ~4 blocks run per SM, with at least DW_MIN_HITS pairs in
+    a run of the busiest offset; dW tiles are 32 wide at C = 32."""
+    got = []
+    for _, valid, hits, c in TRAINING_MAPS:
+        per_offset = [valid] + [(hits - valid) // 26] * 26  # the centre hits every valid row
+        got.append(sc.row_splits(per_offset, c, c, sms=132))
+    assert got == [20, 20, 20, 5, 2, 1]
+    assert [sc.dw_tile(c, c) for *_, c in TRAINING_MAPS] == [32, 64, 64, 64, 64, 64]
+    assert sc.row_splits([300] + [20] * 26, 8, 8, sms=132) == 2  # capped by the hits: 300 pairs
+    assert sc.row_splits([0] * 27, 8, 8, sms=132) == 1
+
+
+def _jax_kernel_map():
+    """A kernel map built by the JAX package over three slots of 70 rows (N = 210, not a multiple of
+    the 64-row tile), pads last in each slot: 50 voxels, one voxel, 40 voxels, all at even z, so the 18
+    offsets with dz = +-1 hit no row."""
+    rng = np.random.default_rng(7)
+    slot, counts = 70, (50, 1, 40)
+    grid = np.zeros((3 * slot, 3), np.int32)
+    valid = np.zeros(3 * slot, bool)
+    for b, nv in enumerate(counts):
+        cells = rng.choice(6 * 6 * 3, nv, replace=False)
+        g = np.stack(np.unravel_index(cells, (6, 6, 3)), 1)
+        g[:, 2] *= 2
+        grid[b * slot : b * slot + nv] = g
+        valid[b * slot : b * slot + nv] = True
+    batch = np.repeat(np.arange(3), slot).astype(np.int32)
+    index = jsparse.build_voxel_index(jnp.asarray(grid), jnp.asarray(batch), jnp.asarray(valid), 16)
+    kmap = jsparse.build_kernel_map(index, jnp.asarray(grid), jnp.asarray(batch), jnp.asarray(valid),
+                                    jsparse.SparseConvSpec.cube(3), 16)
+    return torch.from_numpy(np.asarray(kmap.neighbor_idx).astype(np.int32)), valid, slot
+
+
+def test_rulebook_of_a_jax_kernel_map():
+    idx, valid, slot = _jax_kernel_map()
+    n, k = idx.shape
+    before = sc.rulebook_builds
+    rb = sc.build_rulebook(idx)
+    assert sc.rulebook_builds == before + 1
+    idx_np = idx.numpy()
+    hit = idx_np < n
+    # the pairs are exactly the map's hits, offset by offset
+    starts = rb.pair_start.tolist()
+    assert starts[0] == 0 and starts[-1] == rb.pair_in.numel() == hit.sum()
+    assert list(rb.hits) == np.diff(starts).tolist() == hit.sum(0).tolist()
+    got = {(int(o), d, int(i)) for d in range(k)
+           for i, o in zip(rb.pair_in[starts[d] : starts[d + 1]], rb.pair_out[starts[d] : starts[d + 1]])}
+    assert got == {(i, d, int(idx_np[i, d])) for i, d in zip(*np.nonzero(hit))}
+    dz = np.asarray(sp.SparseConvSpec.cube(3).offsets)[:, 2]
+    assert all((rb.hits[d] == 0) == (dz[d] != 0) for d in range(k))
+    # the order: a permutation, rows with a hit first, rows of one hit mask together
+    perm = rb.perm.numpy()
+    assert rb.perm.dtype == torch.int32 and sorted(perm.tolist()) == list(range(n))
+    mask = (hit.astype(np.int64) << np.arange(k)).sum(1)[perm]
+    rows_hit = int((mask != 0).sum())
+    assert rows_hit == valid.sum() and (mask[:rows_hit] != 0).all() and (mask[rows_hit:] == 0).all()
+    change = np.flatnonzero(mask[1:] != mask[:-1]) + 1
+    groups = np.split(mask, change)
+    assert len({int(g[0]) for g in groups}) == len(groups)  # each mask in one run
+    assert mask[perm.tolist().index(slot)] == 1 << 13  # the slot of one valid row: only its centre
+    # offset-major neighbours, tiles and their masks
+    tiles = -(-n // sc.TILE)
+    assert rb.busy_tiles == -(-rows_hit // sc.TILE) and rb.nbr.shape == (k, tiles * sc.TILE)
+    np.testing.assert_array_equal(rb.nbr.numpy()[:, :n], idx_np[perm].T)
+    assert (rb.nbr.numpy()[:, n:] == n).all()
+    padded = np.concatenate([mask, np.zeros(tiles * sc.TILE - n, np.int64)]).reshape(tiles, sc.TILE)
+    np.testing.assert_array_equal(rb.tile_mask.numpy(), np.bitwise_or.reduce(padded, axis=1))
+    assert (rb.tile_mask.numpy()[rb.busy_tiles :] == 0).all()  # an all-pad tile
+    # a KernelMap builds its rulebook once; the CPU path of sparse_conv builds none
+    kmap = sp.KernelMap(idx)
+    assert kmap.rulebook() is kmap.rulebook() and sc.rulebook_builds == before + 2
+    sp.sparse_conv(torch.zeros(n, 8), kmap, torch.zeros(k, 8, 8))
+    assert sc.rulebook_builds == before + 2
+
+
+def _conv_by_rulebook(feat, rb, weight, sms=132):
+    """B3's traversal in plain torch: busy tiles x their offsets in groups of offset_splits, each
+    group's f32 sum of the busy rows added in group order, rows written through the permutation."""
+    n, cin = feat.shape
+    k, _, cout = weight.shape
+    splits = sc.offset_splits(rb.busy_tiles, k, cout, sms)
+    per = -(-k // splits)
+    feat_pad = torch.cat([feat.float(), torch.zeros(1, cin)])
+    partial = torch.zeros(splits, rb.busy_tiles * sc.TILE, cout)
+    for t in range(rb.busy_tiles):
+        rows = slice(t * sc.TILE, (t + 1) * sc.TILE)
+        for d in range(k):
+            if int(rb.tile_mask[t]) >> d & 1:
+                partial[d // per, rows] += feat_pad[rb.nbr[d, rows].long()] @ weight[d].float()
+    total = torch.zeros(n, cout)
+    for z in range(splits):
+        total[: rb.busy_tiles * sc.TILE] += partial[z, :n] if rb.busy_tiles * sc.TILE > n else partial[z]
+    out = torch.empty(n, cout)
+    out[rb.perm.long()] = total[:n]
+    return out
+
+
+def _conv_dw_by_rulebook(feat, rb, grad, sms=132):
+    """B4's traversal in plain torch: each offset's hit pairs cut into row_splits runs, a run's
+    A^T G summed, the runs added in order."""
+    cin, cout = feat.shape[1], grad.shape[1]
+    splits = sc.row_splits(rb.hits, cin, cout, sms)
+    start = rb.pair_start.tolist()
+    dw = torch.zeros(len(rb.hits), cin, cout)
+    for d in range(len(rb.hits)):
+        count = start[d + 1] - start[d]
+        per = -(-count // splits)
+        for r in range(splits):
+            lo, hi = start[d] + min(count, r * per), start[d] + min(count, (r + 1) * per)
+            dw[d] += feat[rb.pair_in[lo:hi].long()].float().t() @ grad[rb.pair_out[lo:hi].long()].float()
+    return dw
+
+
+def test_rulebook_traversal_matches_plain_and_pallas():
+    """The kernels' walk over the rulebook (busy tiles and their offsets; per-offset hit pairs, in the
+    splits the wrappers choose) equals the plain versions and the Pallas kernels (interpret mode) on a
+    JAX-built map with pads, an all-pad tile and offsets no row hits."""
+    idx, _, _ = _jax_kernel_map()
+    n = idx.shape[0]
+    rb = sc.build_rulebook(idx)
+    rng = np.random.default_rng(8)
+    feat = rng.normal(size=(n, 16)).astype(np.float32)
+    w = (0.1 * rng.normal(size=(27, 16, 24))).astype(np.float32)
+    g = rng.normal(size=(n, 24)).astype(np.float32)
+    f_t, w_t, g_t = torch.from_numpy(feat), torch.from_numpy(w), torch.from_numpy(g)
+    assert sc.offset_splits(rb.busy_tiles, 27, 24, 132) > 1 and sc.row_splits(rb.hits, 16, 24, 132) == 1
+    got = _conv_by_rulebook(f_t, rb, w_t)
+    torch.testing.assert_close(got, sc.subm_conv_plain(f_t, idx, w_t), rtol=1e-5, atol=1e-5)
+    ref = np.asarray(fused_subm_conv(jnp.asarray(feat), jnp.asarray(idx.numpy()), jnp.asarray(w), interpret=True))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    for sms in (132, 1):  # one run per offset, and more runs than a small map needs
+        got = _conv_dw_by_rulebook(f_t, rb, g_t, sms)
+        ref = sc.subm_conv_dw_plain(f_t, idx, g_t)
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * max(1.0, ref.abs().max().item()))
+    ref = np.asarray(fused_subm_conv_dw(jnp.asarray(feat), jnp.asarray(idx.numpy()), jnp.asarray(g), interpret=True))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * max(1.0, np.abs(ref).max()))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
