@@ -8,8 +8,9 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit;
   2. build: nvcc builds every kernel of the paths from ``csrc/`` and prints
      each kernel's registers, shared memory and spills;
-  3. kernels: B1 (patch attention) and B3 (sparse conv) against their plain
-     versions at the full-width PTv3 serving shapes, in f32 and bf16;
+  3. kernels: B1 (patch attention), B2 (its backward) and B3 (sparse conv)
+     against their plain versions at the full-width PTv3 serving shapes, and
+     B1 at patch 1024, in f32 and bf16;
   4. serve: the server of ``configs/my_dataset/offset_keypoint_ptv3.py``
      (seeded weights) answers 3 POSTs of ~20k-point body-like clouds; each
      kernel must launch once per Block and the conv rulebook be built once
@@ -20,8 +21,9 @@ Phases, each fatal on failure:
      against their plain versions at every training shape (batch 8) in f32
      and bf16, the conv kernels on the kernel maps of a batch of the
      trainer's data pipeline, B2 at patch 1024, B3 and B4 on a map with
-     all-pad tiles and offsets without hits, B3 and B4 bit for bit run to run,
-     and both autograd Functions against autograd of the plain forwards;
+     all-pad tiles and offsets without hits, all four bit for bit run to run
+     (B1 and B2 on inputs with an all-invalid patch, also at patch 1024), and
+     both autograd Functions against autograd of the plain forwards;
   7. train: the config's trainer at full width, batch 8, on synthetic scenes,
      2 epochs of 2 steps with the evaluator and the checkpoint saver; each
      step must launch B1 22, B2 22, B3 44 and B4 22 times and build 5 conv
@@ -31,8 +33,11 @@ Phases, each fatal on failure:
   9. times: request latency and step time (host clock), one step under
      torch.profiler, and each kernel, its plain version and a library
      yardstick at every serving and training shape, beside the bound (CUDA
-     events around a CUDA-graph replay, inputs read from HBM), and the conv
-     rulebook's build per training map (host clock and device time);
+     events around a CUDA-graph replay, inputs read from HBM), the
+     exponentials B1 and B2 compute per step beside their floor on the card's
+     MUFU units, B1 and B2 at patch 1024 (the segmentation bench's patch, on
+     no path here) beside SDPA, and the conv rulebook's build per training
+     map (host clock and device time);
  10. summary: the kernels line (per training step: launches, errors and
      times of the training levels), then ``{"ok": true, "device": ...}`` last.
 """
@@ -79,8 +84,10 @@ CLOUD_POINTS = 20000
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FFMA and bf16 tensor-core flop/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# TF32 tensor cores: B3 and B4 run f32 as 3xTF32, three TF32 products per f32 product
+# TF32 tensor cores: B1-B4 run f32 as 3xTF32, three TF32 products per f32 product
 PEAK_TF32 = 495e12
+EX2_PER_CLOCK_PER_SM = 16  # MUFU exponentials (ex2), the floor of B1's and B2's softmax work
+MAX_SM_MHZ = 0.0
 L2_BYTES = 50 * 2**20
 # (atol, rtol); both sides compute in f32 and round the output once, so bf16 may differ by one ulp (2^-7 |x|)
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-3, 8e-3)}
@@ -199,7 +206,7 @@ def conv_case(rng, idx, c, dtype):
 
 
 def phase_device() -> str:
-    global CARD
+    global CARD, MAX_SM_MHZ
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -208,6 +215,8 @@ def phase_device() -> str:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     CARD = smi.splitlines()[0]
     print(smi)
+    MAX_SM_MHZ = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                      capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; device 0: {torch.cuda.get_device_name(0)}; "
           f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
     return CARD
@@ -321,7 +330,7 @@ def phase_conv_edge_cases(rng) -> None:
 
 
 def phase_kernels(cfg):
-    """B1 and B3 against their plain versions at every serving shape; returns the surface maps."""
+    """B1, B2 and B3 against their plain versions at every serving shape; returns the surface maps."""
     rng = np.random.default_rng(0)
     maps = {}
     for dtype in (torch.float32, torch.bfloat16):  # the key tiles of a patch of 1024 (bench.py's)
@@ -331,6 +340,7 @@ def phase_kernels(cfg):
             maps[n] = surface_kernel_map(rng, n, z_sorted=n < cfg.slot_size)
         for dtype in (torch.float32, torch.bfloat16):
             check_attention(rng, n, heads, patch, dtype)
+            check_attention_bwd(rng, n, heads, patch, dtype)
             check_conv(rng, maps[n], c, dtype)
     return maps
 
@@ -461,6 +471,21 @@ def check_attention_bwd(rng, n, heads, patch, dtype) -> float:
                  *TOL[dtype])
 
 
+def check_attention_bits(rng, n, heads, patch, dtype) -> None:
+    """B1 (with and without the log-sum-exp) and B2 twice on one input, which holds a patch without a
+    valid key: equal bits (fixed summation orders, no atomics)."""
+    qkv, valid, out32, lse, g = attention_bwd_case(rng, n, heads, patch, dtype)
+    runs = {"B1": lambda: pa.patch_attention(qkv, valid, patch, 0.25),
+            "B1 with lse": lambda: torch.cat([t.float().flatten() for t in pa.patch_attention_with_lse(qkv, valid,
+                                                                                                       patch, 0.25)]),
+            "B2": lambda: pa.patch_attention_backward(qkv, valid, out32, lse, g, patch, 0.25)}
+    for name, fn in runs.items():
+        if not torch.equal(fn(), fn()):
+            raise AssertionError(f"{name} N={n} H={heads} patch={patch} {dtype}: two runs on one input differ")
+    print(f"B1, B2 N={n} H={heads} patch={patch} {str(dtype)[6:]} (one patch without a valid key): "
+          f"two runs give equal bits")
+
+
 def phase_train_kernels(cfg, maps):
     """All four kernels against their plain versions at every training shape, the conv kernels on
     the trainer's maps, and the autograd Functions; returns each kernel's largest f32 error."""
@@ -470,6 +495,7 @@ def phase_train_kernels(cfg, maps):
         err = check_attention_bwd(rng, cfg.slot_size, 4, 1024, dtype)
         if dtype == torch.float32:
             errors["patch_attention_bwd"] = max(errors["patch_attention_bwd"], err)
+        check_attention_bits(rng, cfg.slot_size, 4, 1024, dtype)
     for n, c, heads, patch, _ in train_shapes(cfg):
         idx = maps[n]
         for dtype in (torch.float32, torch.bfloat16):
@@ -477,6 +503,7 @@ def phase_train_kernels(cfg, maps):
                      "patch_attention_bwd": check_attention_bwd(rng, n, heads, patch, dtype),
                      "subm_conv_fwd": check_conv(rng, idx, c, dtype)}
             found["subm_conv_dw"] = check_conv_dw(rng, idx, c, dtype)
+            check_attention_bits(rng, n, heads, patch, dtype)
             if dtype == torch.float32:
                 for name, err in found.items():
                     errors[name] = max(errors[name], err)
@@ -687,8 +714,10 @@ def time_kernel(name, cases, kernel, plain, library, nbytes, flops, dtype, peak=
 
 def time_attention(rng, n, heads, patch, dtype, backward: bool):
     """B1 (or with ``backward`` B2), its plain version and F.scaled_dot_product_attention (its backward:
-    forward + backward less the forward, both timed) on the same inputs."""
+    forward + backward less the forward, both timed) on the same inputs.  f32 runs as 3xTF32, so its
+    operations bound is 3 TF32 products per f32 product at the TF32 rate."""
     size = torch.tensor([], dtype=dtype).element_size()
+    tf32 = dict(peak=PEAK_TF32, unit="3xTF32, 495 TFLOP/s") if dtype == torch.float32 else {}
     p = n // patch
     qkv_bytes = n * 3 * heads * 16 * size
     row_bytes = n * heads * 16 * size
@@ -708,16 +737,19 @@ def time_attention(rng, n, heads, patch, dtype, backward: bool):
         return time_kernel("B1", cases, lambda q, v, o, l, g, qh, m, gh: pa.patch_attention(q, v, patch, 0.25),
                            lambda q, v, o, l, g, qh, m, gh: pa.patch_attention_plain(q, v, patch, 0.25),
                            lambda q, v, o, l, g, qh, m, gh: sdpa(qh, m),
-                           qkv_bytes + n + row_bytes, 4.0 * n * patch * 16 * heads, dtype)
+                           qkv_bytes + n + row_bytes, 4.0 * n * patch * 16 * heads * (3 if tf32 else 1), dtype,
+                           **tf32)
     nbytes = 2 * qkv_bytes + n + row_bytes + n * heads * 16 * 4 + n * heads * 4  # dO in the dtype, O and lse in f32
     cases = input_sets(make, nbytes)
     row = time_kernel("B2", cases, lambda q, v, o, l, g, qh, m, gh: pa.patch_attention_backward(q, v, o, l, g, patch, 0.25),
                       lambda q, v, o, l, g, qh, m, gh: pa.patch_attention_backward_plain(q, v, g, patch, 0.25),
                       lambda q, v, o, l, g, qh, m, gh: torch.autograd.grad(sdpa(qh, m), qh, gh),
-                      nbytes, 10.0 * n * patch * 16 * heads, dtype)
+                      nbytes, 10.0 * n * patch * 16 * heads * (3 if tf32 else 1), dtype, **tf32)
     fwd = cuda_ms(lambda q, v, o, l, g, qh, m, gh: sdpa(qh, m), cases)
+    both = row["library_ms"]
     row["library_ms"] -= fwd
-    print(f"    (library: SDPA forward + backward less its forward, {fwd:.4f} ms)")
+    print(f"    (library: SDPA forward + backward {both:.4f} ms less its forward {fwd:.4f} ms = "
+          f"{row['library_ms']:.4f} ms)")
     return row
 
 
@@ -857,6 +889,23 @@ def phase_times(cfg, latencies, serve_maps, train_maps, errors, train):
             bound_ms=t["bound_ms"], bound_by="operations" if t["t_ops"] >= t["t_bytes"] else "bytes",
             library_ms=t["library_ms"],
         ))
+
+    # B1 takes one exponential per score; B2 one in its one pass (patch <= pa.ONE_PASS_PATCH), two in
+    # its two-kernel shape (dq and dk/dv each recompute P)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = EX2_PER_CLOCK_PER_SM * sms * MAX_SM_MHZ * 1e6
+    for name in ("patch_attention_fwd", "patch_attention_bwd"):
+        exps = sum(n * patch * heads * depth * (2 if name == "patch_attention_bwd" and patch > pa.ONE_PASS_PATCH else 1)
+                   for n, _, heads, patch, depth in train_shapes(cfg))
+        print(f"{name} per training step: {exps / 1e6:.1f} M exponentials, floor {exps / rate * 1e3:.4f} ms at "
+              f"{EX2_PER_CLOCK_PER_SM} per clock per SM x {sms} SMs x {MAX_SM_MHZ:.0f} MHz, beside the kernel's "
+              f"{per_step[name]['ms']:.4f} ms {stamp()}")
+
+    n = cfg.slot_size
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"bench patch: N={n} H=4 patch=1024 {str(dtype)[6:]} (on no path here; not in the sums above):")
+        time_attention(rng, n, 4, 1024, dtype, backward=False)
+        time_attention(rng, n, 4, 1024, dtype, backward=True)
     return kernels
 
 

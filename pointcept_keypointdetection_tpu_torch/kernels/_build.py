@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
-``_build/lib<name>-<hash>.so`` for ``sm_90a``.  The hash covers the source
-and the flags, so an edited source builds anew at its first use; a library
+``_build/lib<name>-<hash>.so`` for ``sm_90a``.  The hash covers the source,
+every header of ``csrc/`` (``*.cuh``, which the sources include) and the
+flags, so an edited source or header builds anew at its first use; a library
 that exists is loaded as it is.  The first call builds every missing library,
 one nvcc process per source, all started together.
 """
@@ -45,8 +46,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -5,19 +5,26 @@ beside its plain version, and the autograd Function that joins them.
 ``pointcept_keypointdetection_tpu/ops/pallas/patch_attention.py::
 _attn_kernel`` (via ``_pallas_forward``): per (patch, head),
 softmax(q k^T * scale, invalid keys at -1e9) v in f32.  On a CUDA tensor it
-launches the hand-written kernel ``csrc/patch_attention.cu`` (four threads
-per query, keys streamed through shared memory with an online softmax; see
-the source for its design); on a CPU tensor it runs
-``patch_attention_plain``.  The work is 4*N*K*D flops per head against
-~(3+1)*N*H*D elements moved, so at K = 128, D = 16 neither the bytes nor the
-f32 rate bound it: its launch and latency do.
+launches the hand-written kernel ``csrc/patch_attention.cu``: a block owns
+128 queries of a (patch, head), 16 per warp, and streams the keys through a
+``cp.async`` ring in tiles of 64 with an online softmax, walking several
+patches so that one patch's loads overlap another's math; every product runs
+on the tensor cores (``mma.sync``: bf16, or f32 as 3xTF32), and the
+exponentials are base-2 (see the source for the design).  On a CPU tensor it
+runs ``patch_attention_plain``.  With the products on the tensor cores, its
+least time on the card is that of the bytes it moves (qkv read once, the
+output written once); ``PERF.md`` gives how far from it the kernel runs.
 
 ``patch_attention_backward`` replaces ``_attn_bwd_kernel`` (via
 ``_pallas_backward``, the ``custom_vjp`` backward): on a CUDA tensor kernel
-B2, which reads the forward's output in f32 and its per-row log-sum-exp; on a CPU
-tensor ``patch_attention_backward_plain``, which recomputes the
-probabilities as the Pallas kernel does.  ``PatchAttentionFunction`` runs
-B1 with the log-sum-exp in its forward and B2 in its backward.
+B2 on the same design, reading the forward's output in f32 and its per-row
+log-sum-exp.  Up to ``ONE_PASS_PATCH`` keys a block holds a patch's keys and
+computes dq, dk and dv in one pass (one exponential per score); beyond it two
+kernels, dq with the keys streamed, which also writes delta = rowsum(dO * O)
+to a scratch the wrapper allocates, then dk/dv with the queries streamed.
+On a CPU tensor ``patch_attention_backward_plain``, which recomputes the
+probabilities as the Pallas kernel does.  ``PatchAttentionFunction`` runs B1
+with the log-sum-exp in its forward and B2 in its backward.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 16  # the kernels' compiled head dim: every PTv3 stage of the repo's configs
+ONE_PASS_PATCH = 128  # B2 runs in one pass up to this patch size (the kernels' stationary rows per block)
 
 
 def _check(qkv: torch.Tensor, valid: torch.Tensor, patch_size: int) -> None:
@@ -57,6 +65,8 @@ def _check_cuda(*tensors: torch.Tensor) -> None:
         raise ValueError(f"the CUDA kernels take head dim {HEAD_DIM}, got {tensors[0].shape[-1]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the CUDA kernels take contiguous tensors")
+    if any(t.data_ptr() % 16 for t in tensors if t.dtype != torch.bool):
+        raise ValueError("the CUDA kernels copy rows in 16-byte pieces: tensors must start 16-byte aligned")
 
 
 def _probs(qkv: torch.Tensor, valid: torch.Tensor, patch_size: int, scale: float):
@@ -154,12 +164,13 @@ def patch_attention_backward(qkv: torch.Tensor, valid: torch.Tensor, out32: Opti
         raise ValueError("kernel B2 takes the forward's out32 f32 [N, H*D] and lse f32 [N, H]")
     _check_cuda(qkv, valid, out32, lse, grad)
     fn = _build.load("patch_attention").patch_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     dqkv = torch.empty_like(qkv)
+    delta = torch.empty((n, h), dtype=torch.float32, device=qkv.device)  # rowsum(dO * O): dq writes, dk/dv reads
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     rc = fn(qkv.data_ptr(), valid.data_ptr(), out32.data_ptr(), lse.data_ptr(), grad.data_ptr(), dqkv.data_ptr(),
-            n, h, d, patch_size, float(scale), _DTYPES[qkv.dtype], stream)
+            delta.data_ptr(), n, h, d, patch_size, float(scale), _DTYPES[qkv.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"patch_attention_bwd failed: CUDA error {rc}")
     bwd_launches += 1

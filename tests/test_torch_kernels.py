@@ -1,7 +1,8 @@
 """The kernels' plain versions against the Pallas kernels (interpret mode),
 the autograd Functions against autograd of the plain forwards, the sparse
 conv's rulebook and a plain emulation of the conv kernels' traversal of it,
-and the wrappers' CPU dispatch, split policies and argument checks.
+a plain emulation of the attention kernels' tile walk, and the wrappers'
+CPU dispatch, split policies and argument checks.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 each against its plain version there.  Tolerances: 2e-4 for attention
@@ -74,6 +75,147 @@ def test_plain_attention_backward_matches_pallas(patch, heads):
                                             patch, scale).numpy()
     assert got.shape == ref.shape == qkv.shape
     np.testing.assert_allclose(got[valid], ref[valid], rtol=2e-4, atol=2e-4)
+
+
+# The attention kernels' constants (csrc/patch_attention.cu): streamed tile rows, base-2 units.
+_KT = 64
+_LOG2E = np.float32(1.4426950408889634)
+_MASKED2 = np.float32(-1e9) * _LOG2E
+_ALL_MASKED = -5e8
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: the mantissa rounded to 10 bits, ties away from zero."""
+    bits = (x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+def _mma(a, b, bf16):
+    """a @ b as the tensor cores compute it: bf16 operands exactly (the kernels round them first),
+    f32 ones as 3xTF32, small x big + big x small + big x big."""
+    if bf16:
+        return a @ b
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _split_bf16(x):
+    """x as the kernels feed P and dS to bf16 tensor cores: a bf16 high part plus a bf16 low part."""
+    high = x.bfloat16().float()
+    return high + (x - high).bfloat16().float()
+
+
+def _heads(x, patch):
+    """[N, ..., H, D] -> [P, H, K, D]."""
+    n, h, d = x.shape[0], x.shape[-2], x.shape[-1]
+    return x.float().reshape(n // patch, patch, h, d).permute(0, 2, 1, 3)
+
+
+def _attention_by_tiles(qkv, valid, patch, scale, bf16):
+    """B1's walk in plain torch: the keys in tiles of 64 with an online softmax in base 2 (log2(e)
+    folded into the scale, an invalid key at -1e9 * log2(e)), each tile's P V in fresh registers
+    joined by acc * corr + tile; in bf16 P split into bf16 high and low parts.  A query's math does
+    not depend on the 16-row warp slab, the 128-row block or the other patches its block walks, so
+    all rows go at once.  Returns (out [N, H*D], lse [N, H])."""
+    n, _, h, d = qkv.shape
+    q, k, v = (_heads(qkv[:, i], patch) for i in range(3))
+    key_valid = valid.reshape(-1, 1, 1, patch)
+    scale2 = torch.tensor(scale, dtype=torch.float32) * _LOG2E
+    m = torch.full(q.shape[:3], -torch.inf)
+    l, acc = torch.zeros(q.shape[:3]), torch.zeros(q.shape)
+    for k0 in range(0, patch, _KT):
+        s = _mma(q, k[:, :, k0 : k0 + _KT].transpose(-1, -2), bf16) * scale2
+        s = torch.where(key_valid[..., k0 : k0 + _KT], s, _MASKED2)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _mma(_split_bf16(p) if bf16 else p, v[:, :, k0 : k0 + _KT], bf16)
+        m = m_new
+    out = (acc / l[..., None]).permute(0, 2, 1, 3).reshape(n, h * d)
+    lse = ((m + torch.log2(l)) * np.float32(np.log(2))).permute(0, 2, 1).reshape(n, h)
+    return out, lse
+
+
+def _attention_backward_by_tiles(qkv, valid, out32, lse, grad, patch, scale, bf16):
+    """B2's one-pass walk in plain torch.  delta = rowsum(dO * O) in four quarters, once per row;
+    P = exp2(S2 - lse * log2(e)) with S2 the base-2 score (-1e9 * log2(e) on an invalid key); a row
+    whose lse is below -5e8 (its patch has no valid key, every S2 = -1e9 * log2(e)) takes
+    exp2(S2 + 1e9 * log2(e)) = 1 and has its gradients divided by K at the end, so P = 1/K.
+    dk, dv: the queries in tiles of 64, each tile's dS^T Q and P^T dO in fresh registers; dq: each
+    query's dS K over runs of 64 keys, each run in fresh registers (the same sums as the two-kernel
+    shape's key tiles); in bf16 P and dS split into bf16 high and low parts.
+    Returns dqkv [N, 3, H, D]."""
+    n, _, h, d = qkv.shape
+    q, k, v = (_heads(qkv[:, i], patch) for i in range(3))
+    g, o = _heads(grad.reshape(n, h, d), patch), _heads(out32.reshape(n, h, d), patch)
+    rnd = _split_bf16 if bf16 else (lambda x: x)
+    quarters = (g * o).reshape(*g.shape[:-1], 4, 4).sum(-1)  # four threads a row, four columns each
+    delta = (quarters[..., 0] + quarters[..., 1]) + (quarters[..., 2] + quarters[..., 3])  # [P, H, K]
+    lse = lse.reshape(-1, patch, h).permute(0, 2, 1)  # [P, H, K]
+    dead = lse < _ALL_MASKED
+    nl2 = torch.where(dead, -_MASKED2, -lse * _LOG2E)
+    inv = torch.where(dead, np.float32(1.0 / patch), np.float32(1.0))
+    key_valid = valid.reshape(-1, 1, patch)
+    scale2 = torch.tensor(scale, dtype=torch.float32) * _LOG2E
+
+    dq = torch.zeros(q.shape)
+    for k0 in range(0, patch, _KT):
+        keys = slice(k0, k0 + _KT)
+        s = torch.where(key_valid[..., None, keys], _mma(q, k[:, :, keys].transpose(-1, -2), bf16) * scale2, _MASKED2)
+        p = torch.exp2(s + nl2[..., None])
+        ds = p * (_mma(g, v[:, :, keys].transpose(-1, -2), bf16) - delta[..., None])
+        dq = dq + _mma(rnd(ds), k[:, :, keys], bf16)
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    for q0 in range(0, patch, _KT):
+        rows = slice(q0, q0 + _KT)
+        st = torch.where(key_valid[..., :, None], _mma(k, q[:, :, rows].transpose(-1, -2), bf16) * scale2, _MASKED2)
+        pt = torch.exp2(st + nl2[..., None, rows])  # [P, H, keys, queries]
+        dst = pt * (_mma(v, g[:, :, rows].transpose(-1, -2), bf16) - delta[..., None, rows])
+        dv = dv + _mma(rnd(pt), g[:, :, rows], bf16)
+        dk = dk + _mma(rnd(dst), q[:, :, rows], bf16)
+    patch_inv = inv[..., :1, None]  # a patch's rows are all dead or none
+    dqkv = torch.stack([dq * scale * inv[..., None], dk * scale * patch_inv, dv * patch_inv])  # [3, P, H, K, D]
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(n, 3, h, d)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("patch", [128, 256])
+def test_attention_tile_walk_matches_plain_and_pallas(patch, mode):
+    """B1's and B2's traversal (64-row tiles, base-2 online softmax, 3xTF32 or bf16 operands, P and
+    dS as bf16 high and low parts, delta once per row) against the plain versions on every row, an all-invalid
+    patch included, and in f32 against the Pallas kernels (interpret mode) on valid rows, at 2e-4.
+    Patch 128 is the trainer's (two 64-row tiles; B2 in one pass on the card); 256 streams four and
+    takes B2's two-kernel shape on the card, whose sums the walk shares (dq per run of 64 keys, dk
+    and dv per tile of 64 queries; delta there in halves, not quarters).  In
+    bf16 the inputs are bf16 and the results, rounded to bf16 as the kernels round them, are held at
+    chip_smoke.py's bf16 tolerance (5e-3 + 8e-3 |x|: one ulp) against the plain version."""
+    bf16 = mode == "bf16"
+    qkv, valid = _attention_case(patch, 2, seed=patch + 7)
+    qkv = qkv[: 3 * patch]  # patches 0 and 2 with pads, patch 1 without a valid key
+    valid = valid[: 3 * patch]
+    grad = np.random.default_rng(patch).normal(size=(qkv.shape[0], 32)).astype(np.float32)
+    q_t, v_t, g_t = torch.from_numpy(qkv), torch.from_numpy(valid), torch.from_numpy(grad)
+    if bf16:
+        q_t, g_t = q_t.bfloat16(), g_t.bfloat16()
+    scale = 16**-0.5
+    out, lse = _attention_by_tiles(q_t, v_t, patch, scale, bf16)
+    dqkv = _attention_backward_by_tiles(q_t, v_t, out, lse, g_t, patch, scale, bf16)
+    ref_out = pa.patch_attention_plain(q_t, v_t, patch, scale)
+    ref_dqkv = pa.patch_attention_backward_plain(q_t, v_t, g_t, patch, scale)
+    assert torch.isfinite(out).all() and torch.isfinite(dqkv).all()
+    assert (lse[patch : 2 * patch] < _ALL_MASKED).all() and (lse[valid] > _ALL_MASKED).all()
+    if bf16:
+        for got, ref in ((out, ref_out), (dqkv, ref_dqkv)):
+            torch.testing.assert_close(got.bfloat16().float(), ref.float(), rtol=8e-3, atol=5e-3)
+        return
+    torch.testing.assert_close(out, ref_out, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(dqkv, ref_dqkv, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(out.numpy()[valid], _pallas_attention(qkv, valid, patch, scale)[valid],
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(dqkv.numpy()[valid], _pallas_attention(qkv, valid, patch, scale, grad)[valid],
+                               rtol=2e-4, atol=2e-4)
 
 
 def _conv_case(seed, n=300, k=27, cin=16, cout=24):
