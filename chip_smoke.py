@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's offset-keypoint server and trainer on one NVIDIA
-GPU and hold its hand-written kernels against their plain versions.
+"""Drive the PyTorch port's offset-keypoint server and trainer, its pigseg
+server and its segmentation bench on one NVIDIA GPU and hold its
+hand-written kernels against their plain versions.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -35,15 +36,33 @@ Phases, each fatal on failure:
      yardstick at every serving and training shape, beside the bound (CUDA
      events around a CUDA-graph replay, inputs read from HBM), the
      exponentials B1 and B2 compute per step beside their floor on the card's
-     MUFU units, B1 and B2 at patch 1024 (the segmentation bench's patch, on
-     no path here) beside SDPA, and the conv rulebook's build per training
-     map (host clock and device time);
- 10. summary: the kernels line (per training step: launches, errors and
-     times of the training levels), then ``{"ok": true, "device": ...}`` last.
+     MUFU units, B1 and B2 at patch 1024 at N = 8192 beside SDPA (B2 there
+     is on no path; B1 at the bench's levels is phase 12's), and the conv
+     rulebook's build per training map (host clock and device time);
+ 10. pigseg: the server of ``configs/pigseg/semseg-ptv3-v1m1-0-base.py`` at
+     slot 32768 (seeded weights) answers 1 warm-up and 3 timed POSTs of
+     ~30k-point clouds with one label per point, each launching B1 and B3
+     once per Block; one request's logits, card against CPU; B1 and B3
+     against their plain versions at every pigseg level in f32 and bf16,
+     B3 on a request's own kernel maps;
+ 11. bench: the port's ``bench`` module (DefaultSegmentorV2, 102,400 points,
+     patch 1024): launches of one forward in bf16 and in f32 (B1 and B3
+     once per Block), scenes/s in each, one bf16 forward under
+     torch.profiler, and the logits against a CPU f32 forward on the same
+     bf16-rounded weights (f32 within ``CPU_TOL``, bf16 within
+     ``BENCH_BF16_TOL`` and its argmax agreeing on at least
+     ``BENCH_BF16_AGREE`` of the valid points);
+ 12. bench kernels: B1 and B3 against their plain versions and timed beside
+     their library calls at every bench level in bf16 and f32, B3 on the
+     bench's kernel maps, with the sums per bench forward;
+ 13. summary: the script's duration, the kernels line (per training step:
+     launches, errors and times of the training levels; B1 and B3 also per
+     bench forward in bf16), then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import re
 import statistics
@@ -58,7 +77,7 @@ import torch
 import torch.nn.functional as F
 from scipy.special import expit
 
-from pointcept_keypointdetection_tpu_torch import serve
+from pointcept_keypointdetection_tpu_torch import bench, serve
 from pointcept_keypointdetection_tpu_torch.datasets import build_dataset
 from pointcept_keypointdetection_tpu_torch.datasets.collate import collate
 from pointcept_keypointdetection_tpu_torch.datasets.dataloader import Dataloader
@@ -70,10 +89,11 @@ from pointcept_keypointdetection_tpu_torch.inference.keypoint import (
     aggregate_keypoints,
     estimate_normals_curvature,
 )
+from pointcept_keypointdetection_tpu_torch.inference.segment import SegmentPredictor
 from pointcept_keypointdetection_tpu_torch.kernels import _build
 from pointcept_keypointdetection_tpu_torch.kernels import patch_attention as pa
 from pointcept_keypointdetection_tpu_torch.kernels import sparse_conv as sc
-from pointcept_keypointdetection_tpu_torch.models import build_model, init_weights
+from pointcept_keypointdetection_tpu_torch.models import build_model, cast_parameters, init_weights
 from pointcept_keypointdetection_tpu_torch.ops import sparse as sp
 from pointcept_keypointdetection_tpu_torch.ops.serialization import z_order_encode_np
 from pointcept_keypointdetection_tpu_torch.utils.config import Config
@@ -147,18 +167,16 @@ def cuda_ms(fn, cases, warmup: int = 3) -> float:
 # ---- the slice's kernel shapes ------------------------------------------------------------------
 
 
-def stage_shapes(cfg):
-    """(N, channels, heads, patch, launches per request) of every Block level of the config."""
-    bb = cfg.model.backbone_conf
-    slot = cfg.slot_size
+def level_shapes(bb, slot: int):
+    """(N, channels, heads, patch, Blocks) of every Block level of the backbone dict ``bb`` at ``slot``."""
     caps = []
-    for s, p in enumerate(bb.enc_patch_size):
-        cap = max(slot // bb.slot_divisors[s], p)
+    for s, p in enumerate(bb["enc_patch_size"]):
+        cap = max(slot // bb["slot_divisors"][s], p)
         caps.append(-(-cap // p) * p)
-    shapes = [(caps[s], bb.enc_channels[s], bb.enc_num_head[s], bb.enc_patch_size[s], bb.enc_depths[s])
+    shapes = [(caps[s], bb["enc_channels"][s], bb["enc_num_head"][s], bb["enc_patch_size"][s], bb["enc_depths"][s])
               for s in range(len(caps))]
-    shapes += [(caps[s], bb.dec_channels[s], bb.dec_num_head[s], bb.dec_patch_size[s], bb.dec_depths[s])
-               for s in range(len(bb.dec_depths))]
+    shapes += [(caps[s], bb["dec_channels"][s], bb["dec_num_head"][s], bb["dec_patch_size"][s], bb["dec_depths"][s])
+               for s in range(len(bb["dec_depths"]))]
     return shapes
 
 
@@ -335,7 +353,7 @@ def phase_kernels(cfg):
     maps = {}
     for dtype in (torch.float32, torch.bfloat16):  # the key tiles of a patch of 1024 (bench.py's)
         check_attention(rng, cfg.slot_size, 4, 1024, dtype)
-    for n, c, heads, patch, _ in stage_shapes(cfg):
+    for n, c, heads, patch, _ in level_shapes(cfg.model.backbone_conf, cfg.slot_size):
         if n not in maps:
             maps[n] = surface_kernel_map(rng, n, z_sorted=n < cfg.slot_size)
         for dtype in (torch.float32, torch.bfloat16):
@@ -345,9 +363,10 @@ def phase_kernels(cfg):
     return maps
 
 
-def phase_serve(cfg, predictor, clouds):
-    """3 POSTs through the server; returns the latencies and the launch counts of the run."""
-    per_request = sum(cfg.model.backbone_conf.enc_depths) + sum(cfg.model.backbone_conf.dec_depths)
+def phase_serve(predictor, clouds, backbone, check_reply):
+    """POSTs through the server, one per cloud; returns the latencies and the launch counts of the run.
+    ``check_reply(i, cloud, reply)`` raises on a wrong reply."""
+    per_request = sum(backbone.enc_depths) + sum(backbone.dec_depths)
     server = serve.make_server(predictor, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -357,7 +376,7 @@ def phase_serve(cfg, predictor, clouds):
         pa.launches = 0
         sc.launches = 0
         sc.rulebook_builds = 0
-        levels = len(cfg.model.backbone_conf.enc_depths)  # one kernel map, so one rulebook, per level
+        levels = len(backbone.enc_depths)  # one kernel map, so one rulebook, per level
         for i, cloud in enumerate(clouds):
             before = (pa.launches, sc.launches, sc.rulebook_builds)
             t0 = time.perf_counter()
@@ -368,8 +387,7 @@ def phase_serve(cfg, predictor, clouds):
             delta = (pa.launches - before[0], sc.launches - before[1], sc.rulebook_builds - before[2])
             print(f"request {i}: {cloud.shape[0]} points -> reply {reply.size} floats, "
                   f"{latencies[-1]:.1f} ms, launches B1 +{delta[0]} B3 +{delta[1]}, rulebooks built +{delta[2]}")
-            if reply.shape != (18,) or not np.isfinite(reply).all():
-                raise AssertionError(f"request {i}: expected 6 x 3 finite floats, got {reply}")
+            check_reply(i, cloud, reply)
             if delta != (per_request, per_request, levels):
                 raise AssertionError(f"request {i}: expected {per_request} launches of each kernel and {levels} "
                                      f"rulebooks, got {delta}")
@@ -380,8 +398,13 @@ def phase_serve(cfg, predictor, clouds):
         thread.join(timeout=30)
     if thread.is_alive():
         raise RuntimeError("the server thread did not stop")
-    print(f"serve: {REQUESTS} requests answered; launches {counts}")
+    print(f"serve: {len(clouds)} requests answered; launches {counts}")
     return latencies, counts
+
+
+def check_keypoints(i, cloud, reply) -> None:
+    if reply.shape != (18,) or not np.isfinite(reply).all():
+        raise AssertionError(f"request {i}: expected 6 x 3 finite floats, got {reply}")
 
 
 def phase_cpu(cfg, predictor, cloud) -> None:
@@ -425,7 +448,7 @@ def phase_cpu(cfg, predictor, cloud) -> None:
 
 def train_shapes(cfg):
     """(N, channels, heads, patch, Blocks) of every training Block level: serving slots x batch."""
-    return [(n * cfg.batch_size, c, h, p, d) for n, c, h, p, d in stage_shapes(cfg)]
+    return [(n * cfg.batch_size, c, h, p, d) for n, c, h, p, d in level_shapes(cfg.model.backbone_conf, cfg.slot_size)]
 
 
 def training_maps(cfg) -> dict:
@@ -568,28 +591,33 @@ def device_kernels(prof) -> dict:
     return by_kernel
 
 
-def profile_step(trainer, run_step) -> dict:
-    """One training step under torch.profiler: device busy ms (the kernels' sum), idle share, kernels."""
+def profile_run(label: str, run, top: int = 12) -> dict:
+    """``run()`` under torch.profiler: wall ms, device busy ms (the kernels' sum), idle share, kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    trainer.comm_info["input_dict"] = next(iter(trainer.train_loader))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_step()
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = device_kernels(prof)
     busy = sum(ms for ms, _ in by_kernel.values())
     out = dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1.0 - busy / wall_ms if busy else None,
                kernels=sum(cnt for _, cnt in by_kernel.values()))
-    print(f"one training step under torch.profiler: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+    print(f"{label} under torch.profiler: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {out['idle_share']}, {out['kernels']} kernels {stamp()}")
-    for name, (ms, cnt) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
+    for name, (ms, cnt) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {ms:9.3f} ms x{cnt:5d}  {name[:110]}")
     if not busy:
-        raise AssertionError("the profiler saw no device time in the training step")
+        raise AssertionError(f"the profiler saw no device time in {label}")
     return out
+
+
+def profile_step(trainer, run_step) -> dict:
+    """One training step under torch.profiler."""
+    trainer.comm_info["input_dict"] = next(iter(trainer.train_loader))
+    return profile_run("one training step", run_step)
 
 
 def phase_train(cfg):
@@ -824,6 +852,16 @@ def time_rulebook(idx, repeats: int = 5) -> dict:
     return row
 
 
+ROW_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
+
+
+def add_row(totals, name, row, launches) -> None:
+    """Add ``launches`` times a timed row to ``totals[name]``."""
+    t = totals.setdefault(name, dict.fromkeys(ROW_KEYS, 0.0))
+    for key in ROW_KEYS:
+        t[key] += launches * row[key]
+
+
 def phase_times(cfg, latencies, serve_maps, train_maps, errors, train):
     """Request latency, step time and each kernel's times; returns the kernels line, each row per
     training step: launches in one step of the trainer's run, errors at the training shapes, and
@@ -834,22 +872,15 @@ def phase_times(cfg, latencies, serve_maps, train_maps, errors, train):
     print(f"training step time (host clock, batch {cfg.batch_size}, steps 2-{len(train['step_ms'])}): median "
           f"{statistics.median(timed):.2f} ms, each {[round(x, 2) for x in train['step_ms']]} {stamp()}")
     rng = np.random.default_rng(1)
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
-
-    def add(totals, name, row, launches):
-        t = totals.setdefault(name, dict.fromkeys(keys, 0.0))
-        for key in keys:
-            t[key] += launches * row[key]
-
     per_request = {}
-    for n, c, heads, patch, depth in stage_shapes(cfg):
+    for n, c, heads, patch, depth in level_shapes(cfg.model.backbone_conf, cfg.slot_size):
         for dtype in (torch.float32, torch.bfloat16):
             print(f"serving level N={n} C={c} H={heads} patch={patch} {str(dtype)[6:]} (x{depth} per request):")
             rows = {"patch_attention_fwd": time_attention(rng, n, heads, patch, dtype, backward=False),
                     "subm_conv_fwd": time_conv(rng, serve_maps[n], c, dtype, dw=False)}
             if dtype == torch.float32:
                 for name, row in rows.items():
-                    add(per_request, name, row, depth)
+                    add_row(per_request, name, row, depth)
     for name, t in per_request.items():
         print(f"{name} per request (f32, sum over its launches): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms {stamp()}")
@@ -870,7 +901,7 @@ def phase_times(cfg, latencies, serve_maps, train_maps, errors, train):
                     "subm_conv_dw": time_conv(rng, train_maps[n], c, dtype, dw=True)}
             if dtype == torch.float32:
                 for name, row in rows.items():
-                    add(per_step, name, row, launches[name] * depth)
+                    add_row(per_step, name, row, launches[name] * depth)
     conv = per_step["subm_conv_fwd"]["ms"] + per_step["subm_conv_dw"]["ms"]
     print(f"sparse conv per training step (f32, device): B3 {per_step['subm_conv_fwd']['ms']:.4f} + B4 "
           f"{per_step['subm_conv_dw']['ms']:.4f} + rulebook builds {rulebook['device_ms']:.4f} = "
@@ -903,13 +934,182 @@ def phase_times(cfg, latencies, serve_maps, train_maps, errors, train):
 
     n = cfg.slot_size
     for dtype in (torch.float32, torch.bfloat16):
-        print(f"bench patch: N={n} H=4 patch=1024 {str(dtype)[6:]} (on no path here; not in the sums above):")
+        print(f"bench patch: N={n} H=4 patch=1024 {str(dtype)[6:]} (B2 on no path here; B1 timed at the bench "
+              f"levels below; not in the sums above):")
         time_attention(rng, n, 4, 1024, dtype, backward=False)
         time_attention(rng, n, 4, 1024, dtype, backward=True)
     return kernels
 
 
+# ---- the segmentation slice --------------------------------------------------------------------------
+
+SEG_CONFIG = "configs/pigseg/semseg-ptv3-v1m1-0-base.py"
+SEG_SLOT = 32768
+SEG_POINTS = 30000
+# bench forward, the card's bf16 logits against the CPU's f32 on the same bf16-rounded weights, relative
+# to max(1, max|cpu|): the card read 0.0186 here, and tests/test_torch_segment.py reads JAX bf16 against
+# JAX f32 at up to 0.026 through its 5 Blocks; twice the card's reading leaves room for the seeded data
+# and stays well below a logit's size (a wrong bf16 forward errs by its logits' order of magnitude)
+BENCH_BF16_TOL = 0.04
+# the share of valid points whose bf16 label is the CPU f32's: the card read 0.9894 (labels flip only on
+# near ties of the 20 seeded logits); a forward that is wrong away from ties falls far below
+BENCH_BF16_AGREE = 0.97
+
+
+def phase_pigseg() -> None:
+    """The pigseg server at full width, slot 32768, seeded weights: 1 warm-up and 3 timed requests
+    of body-like clouds through HTTP, each launching B1 and B3 once per Block; then one request's
+    logits, card against CPU (plain versions), with the same weights; then B1 and B3 against their
+    plain versions at every level of the request, in f32 and bf16, B3 on the request's kernel maps."""
+    cfg = Config.fromfile(SEG_CONFIG)
+    predictor = serve.build_predictor("pigseg", cfg, None, SEG_SLOT, "cuda")
+    rng = np.random.default_rng(4)
+    clouds = [request_cloud(rng, SEG_POINTS) for _ in range(REQUESTS + 1)]
+    warm = clouds.pop()
+    predictor.predict(warm[:, :3], warm[:, 3:])  # cuBLAS handles and the allocator's pool
+    classes = cfg.model.num_classes
+
+    def check_labels(i, cloud, reply):
+        if reply.shape != (cloud.shape[0],) or not np.isin(reply, np.arange(classes)).all():
+            raise AssertionError(f"request {i}: expected {cloud.shape[0]} labels in [0, {classes}), got "
+                                 f"{reply.shape} {np.unique(reply)[:8]}")
+
+    latencies, _ = phase_serve(predictor, clouds, cfg.model.backbone, check_labels)
+    print(f"pigseg request latency (host clock, POST to reply, slot {SEG_SLOT}, {REQUESTS} requests of "
+          f"{SEG_POINTS} points x 7): median {statistics.median(latencies):.2f} ms, each "
+          f"{[round(x, 2) for x in latencies]} {stamp()}")
+
+    state = {k: v.detach().cpu() for k, v in predictor.model.state_dict().items()}
+    cpu = SegmentPredictor(dict(cfg.model), state, SEG_SLOT, device="cpu")
+    cloud = clouds[0]
+    gpu_res = predictor.infer(cloud[:, :3], cloud[:, 3:])
+    t0 = time.perf_counter()
+    cpu_res = cpu.infer(cloud[:, :3], cloud[:, 3:])
+    print(f"pigseg request on the CPU: {(time.perf_counter() - t0) * 1e3:.1f} ms (host clock)")
+    np.testing.assert_array_equal(gpu_res["inverse"], cpu_res["inverse"])
+    a, b = gpu_res["seg_logits"], cpu_res["seg_logits"]
+    err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+    print(f"pigseg card vs cpu seg_logits {a.shape}: max_abs_err={err:.3e} (|cpu| max {scale:.3f}) "
+          f"tol={CPU_TOL:g} x max(1, |cpu| max)")
+    if not (np.isfinite(a).all() and err <= CPU_TOL * max(1.0, scale)):
+        raise AssertionError("card and CPU disagree on the pigseg logits")
+    top2 = np.sort(b, axis=1)[:, -2:]
+    tie = (top2[:, 1] - top2[:, 0] <= 2 * err)[cpu_res["inverse"]]
+    differ = (a.argmax(1) != b.argmax(1))[cpu_res["inverse"]]
+    print(f"pigseg card vs cpu labels: {int(differ.sum())} of {differ.size} points differ; {int(tie.sum())} points "
+          f"sit on a near tie (the CPU's two best logits closer than {2 * err:.3e})")
+    if (differ & ~tie).any():
+        raise AssertionError(f"{int((differ & ~tie).sum())} pigseg labels differ away from a near tie")
+
+    maps = capture_maps(predictor.model, lambda: predictor.predict(cloud[:, :3], cloud[:, 3:]), "pigseg")
+    rng = np.random.default_rng(6)
+    for n, c, heads, patch in dict.fromkeys(shape[:4] for shape in level_shapes(cfg.model.backbone, SEG_SLOT)):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_attention(rng, n, heads, patch, dtype)
+            check_conv(rng, maps[n], c, dtype)
+
+
+def capture_maps(model, run, label: str) -> dict:
+    """{N: kernel map} of every level of the forward that ``run()`` drives through ``model``."""
+    make, maps = model.backbone._kernel_map, {}
+
+    def record(pt, shuffled):
+        kmap = make(pt, shuffled)
+        maps[kmap.neighbor_idx.shape[0]] = kmap.neighbor_idx
+        return kmap
+
+    model.backbone._kernel_map = record
+    try:
+        run()
+    finally:
+        del model.backbone._kernel_map
+    for n, idx in sorted(maps.items(), reverse=True):
+        print(f"{label} map N={n}: {int((idx < n).sum())} hits, {int((idx[:, 13] < n).sum())} valid rows")
+    return maps
+
+
+def phase_bench() -> dict:
+    """The bench module's forward at 102,400 points: one forward of each dtype with its launches
+    counted (B1 and B3 once per Block, a rulebook per kernel map), scenes/s in bf16 and in f32, one
+    bf16 forward under torch.profiler, and the logits against a CPU f32 forward (plain versions) on
+    the same bf16-rounded weights.  Returns each dtype's launch counts and the bench's kernel maps."""
+    base = init_weights(build_model(bench.model_config()), torch.Generator().manual_seed(0))
+    cast_parameters(cast_parameters(base, torch.bfloat16), torch.float32)  # bf16-rounded values, kept in f32
+    bb = bench.model_config()["backbone"]
+    blocks = sum(bb["enc_depths"]) + sum(bb["dec_depths"])
+    expect = {"patch_attention_fwd": blocks, "patch_attention_bwd": 0, "subm_conv_fwd": blocks, "subm_conv_dw": 0}
+    logits, out = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        model, point = bench.build_workload(bench.POINTS, "cuda", dtype, model=copy.deepcopy(base))
+        bench.forward(model, point)  # cuBLAS handles and the allocator's pool
+        torch.cuda.synchronize()
+        set_launch_counts_to_zero()
+        result = bench.forward(model, point)
+        torch.cuda.synchronize()
+        counts, built = launch_counts(), sc.rulebook_builds
+        print(f"bench forward {name}: launches {counts}, rulebooks built {built}")
+        if counts != expect or built != len(bb["enc_depths"]):
+            raise AssertionError(f"bench forward {name}: expected launches {expect} and {len(bb['enc_depths'])} "
+                                 f"rulebooks, got {counts} and {built}")
+        if result.shape != (bench.POINTS, 20) or result.dtype != dtype or not bool(torch.isfinite(result).all()):
+            raise AssertionError(f"bench forward {name}: logits {result.dtype} {tuple(result.shape)}, not all finite")
+        logits[dtype] = result.float().cpu()
+        sps = bench.measure(model, point)
+        print(f"bench ({bench.METRIC}) {name}: {sps:.4f} scenes/s, {1e3 / sps:.2f} ms per forward "
+              f"((t(31) - t(11)) / 20, host clock) {stamp()}")
+        out[name] = counts
+        if dtype == torch.bfloat16:
+            profile_run("one bench forward (bf16)", lambda: bench.forward(model, point), top=10)
+            out["maps"] = capture_maps(model, lambda: bench.forward(model, point), "bench")
+        del model, point, result
+        torch.cuda.empty_cache()
+
+    model, point = bench.build_workload(bench.POINTS, "cpu", torch.float32, model=base)
+    t0 = time.perf_counter()
+    cpu = bench.forward(model, point)
+    print(f"bench forward on the CPU (f32, {torch.get_num_threads()} threads, full scene): "
+          f"{time.perf_counter() - t0:.1f} s (host clock)")
+    valid = point.valid
+    for dtype, tol in ((torch.float32, CPU_TOL), (torch.bfloat16, BENCH_BF16_TOL)):
+        a, b = logits[dtype][valid], cpu[valid]
+        err, scale = (a - b).abs().max().item(), b.abs().max().item()
+        agree = (a.argmax(1) == b.argmax(1)).float().mean().item()
+        floor = BENCH_BF16_AGREE if dtype == torch.bfloat16 else 0.0
+        print(f"bench card {str(dtype)[6:]} vs cpu f32 seg_logits ({int(valid.sum())} valid rows): "
+              f"max_abs_err={err:.3e} (|cpu| max {scale:.3f}) tol={tol:g} x max(1, |cpu| max); "
+              f"argmax agreement {agree:.5f} (floor {floor:g})")
+        if err > tol * max(1.0, scale) or agree < floor:
+            raise AssertionError(f"the card's {dtype} bench logits disagree with the CPU's")
+    return out
+
+
+def phase_bench_kernels(maps) -> dict:
+    """B1 and B3 against their plain versions at every bench level, in bf16 and f32, B3 on the bench's
+    kernel maps, each timed beside its plain version and its library call; returns the per-forward sums
+    of each dtype: {dtype name: {kernel name: totals}}."""
+    rng = np.random.default_rng(5)
+    shapes = {}
+    for n, c, heads, patch, depth in level_shapes(bench.model_config()["backbone"], bench.POINTS):
+        shapes[(n, c, heads, patch)] = shapes.get((n, c, heads, patch), 0) + depth
+    sums = {}
+    for (n, c, heads, patch), depth in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            check_attention(rng, n, heads, patch, dtype)
+            check_conv(rng, maps[n], c, dtype)
+            print(f"bench level N={n} C={c} H={heads} patch={patch} {str(dtype)[6:]} (x{depth} per forward):")
+            totals = sums.setdefault(str(dtype)[6:], {})
+            add_row(totals, "patch_attention_fwd", time_attention(rng, n, heads, patch, dtype, backward=False), depth)
+            add_row(totals, "subm_conv_fwd", time_conv(rng, maps[n], c, dtype, dw=False), depth)
+    for name, totals in sums.items():
+        for kernel, t in totals.items():
+            print(f"{kernel} per bench forward ({name}, sum over its launches): kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms {stamp()}")
+    return sums
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     phase_device()
     phase_build()
     cfg = Config.fromfile(CONFIG)
@@ -919,7 +1119,7 @@ def main() -> None:
     clouds = [request_cloud(rng, CLOUD_POINTS) for _ in range(REQUESTS + 1)]
     warm = clouds.pop()
     predictor.predict(warm[:, :3], warm[:, 3:])  # cuBLAS handles and the allocator's pool, outside the timed requests
-    latencies, _ = phase_serve(cfg, predictor, clouds)
+    latencies, _ = phase_serve(predictor, clouds, cfg.model.backbone_conf, check_keypoints)
     phase_cpu(cfg, predictor, clouds[0])
     del predictor
     train_maps = training_maps(cfg)
@@ -927,6 +1127,16 @@ def main() -> None:
     train = phase_train(cfg)
     phase_train_cpu(cfg)
     kernels = phase_times(cfg, latencies, maps, train_maps, errors, train)
+    phase_pigseg()
+    run = phase_bench()
+    sums = phase_bench_kernels(run.pop("maps"))
+    for row in kernels:  # B1 and B3 per bench forward, bf16
+        if row["name"] in sums["bfloat16"]:
+            t = sums["bfloat16"][row["name"]]
+            row.update(bench_launches=run["bfloat16"][row["name"]], bench_ms=t["ms"],
+                       bench_plain_ms=t["plain_ms"], bench_library_ms=t["library_ms"], bench_bound_ms=t["bound_ms"],
+                       bench_bound_by="operations" if t["t_ops"] >= t["t_bytes"] else "bytes")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s {stamp()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

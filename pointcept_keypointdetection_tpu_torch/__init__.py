@@ -7,5 +7,8 @@ CUDA kernels are under ``kernels/`` with their sources in ``csrc/``.
 
 Ported so far: the offset-keypoint inference path over PT-v3m1
 (``inference.keypoint.OffsetKeypointPredictor``, ``serve``) and its
-training path (``engines.train.Trainer``, ``train``).
+training path (``engines.train.Trainer``, ``train``); the segmentation
+inference path of ``DefaultSegmentorV2`` in f32 and bf16
+(``inference.segment.SegmentPredictor``, ``serve --task pigseg``, and
+``bench``, the counterpart of the repository's ``bench.py``).
 """

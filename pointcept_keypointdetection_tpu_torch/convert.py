@@ -12,7 +12,8 @@ arrays (what ``flax`` holds, or a checkpoint reader returns).  The rules:
   `point_transformer_v3.py:266-279`) split along their leading depth axis
   into ``enc{s}_block{i}``;
 * flax's automatic names map to the port's: the backbone
-  ``PointTransformerV3_0`` is ``backbone``, the head's ``Dense_{i}`` is
+  ``PointTransformerV3_0`` is ``backbone`` (in ``OffsetKeypointPTv3`` and
+  in ``DefaultSegmentorV2``, whose ``seg_head`` keeps its name), the head's ``Dense_{i}`` is
   ``head.{2i}``, the xCPE's ``Dense_0`` / ``LayerNorm_0`` are ``linear`` /
   ``norm``, the MLP's ``Dense_0`` / ``Dense_1`` are ``fc1`` / ``fc2``.
 """

@@ -19,8 +19,7 @@ import torch
 from scipy.special import expit
 
 from ..datasets.collate import collate
-from ..engines.common import build_point_batch, sample_to_device
-from ..models import build_model, init_weights
+from ..engines.common import build_eval_model, build_point_batch, sample_to_device
 from ..ops.serialization import z_order_encode_np
 
 
@@ -95,15 +94,8 @@ class OffsetKeypointPredictor:
         generator: Optional[torch.Generator] = None,
     ):
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("OffsetKeypointPredictor: device is cuda but no CUDA device is available")
         self._model_cfg = dict(model_cfg)
-        model = build_model(dict(model_cfg))
-        if state_dict is None:
-            init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
-        else:
-            model.load_state_dict(state_dict)
-        self.model = model.to(self.device).eval()
+        self.model = build_eval_model(model_cfg, state_dict, self.device, generator)
         self.slot_size = slot_size
         self._lock = threading.Lock()  # one forward at a time (the server is threaded)
 

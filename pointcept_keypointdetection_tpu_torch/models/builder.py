@@ -33,3 +33,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         if param.dim() == 3:
             nn.init.trunc_normal_(param, std=0.02, a=-0.04, b=0.04, generator=generator)
     return model
+
+
+@torch.no_grad()
+def cast_parameters(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Float parameters to ``dtype``, buffers (the BN running statistics) kept as they are:
+    ``bench.py:172-180``'s cast of the params collection.  Never ``model.to(dtype)``,
+    which would round the statistics too."""
+    for param in model.parameters():
+        if param.is_floating_point():
+            param.data = param.data.to(dtype)
+    return model

@@ -1,0 +1,41 @@
+"""Segmentation wrapper: the counterpart of ``DefaultSegmentorV2``
+(``pointcept_keypointdetection_tpu/models/default.py:79-106``).
+
+The backbone returns per-point features and the wrapper owns a linear seg
+head.  The head is flax ``nn.Dense`` without a ``dtype``, so it computes in
+the promoted dtype of its input and its parameters: bf16 in the bench, where
+both are bf16.  Losses are not ported: with targets (``segment``) in the
+batch and ``criteria`` configured, the forward raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .builder import MODELS, build_model
+from .structure import PointBatch
+
+
+@MODELS.register_module()
+class DefaultSegmentorV2(nn.Module):
+    """backbone -> per-point features -> ``seg_head`` -> ``{"seg_logits": [N, num_classes]}``."""
+
+    def __init__(self, backbone: Dict[str, Any], num_classes: int = 20, backbone_out_channels: int = 64,
+                 criteria: Sequence[Dict[str, Any]] = ()):
+        super().__init__()
+        self.backbone = build_model(dict(backbone))
+        self.seg_head = nn.Linear(backbone_out_channels, num_classes)
+        self.criteria = tuple(criteria)
+
+    def forward(self, point: PointBatch, batch: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        if batch is not None and "segment" in batch and self.criteria:
+            raise NotImplementedError("DefaultSegmentorV2: the segmentation losses are not ported yet")
+        feat = self.backbone(point, generator)
+        dtype = torch.promote_types(feat.dtype, self.seg_head.weight.dtype)
+        logits = F.linear(feat.to(dtype), self.seg_head.weight.to(dtype), self.seg_head.bias.to(dtype))
+        return {"seg_logits": logits}

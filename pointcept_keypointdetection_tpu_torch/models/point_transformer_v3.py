@@ -18,6 +18,12 @@ encoder and then the decoder Blocks in the order they run, and, with
 serialization, drawn from the generator passed to ``forward``; a shuffled
 forward does not reuse the z sort for the kernel maps and pooling.
 
+Dtypes, as in JAX: the features may be bf16 (the bench), and every Dense
+then runs in the features' dtype whatever its parameters' (``Dense``); the
+norms compute in f32 and cast back (``norm.py``); the xCPE conv and the stem
+take their weight cast to the features' dtype, accumulate in f32 and cast
+their output; patch attention computes in f32 and writes the features' dtype.
+
 Not ported (raise): enc_mode, PDNorm, LoRA, RPE, the bottleneck and
 large-kernel xCPE, chain kernel maps, the k=3 stem and the cell-select stem.
 """
@@ -62,15 +68,24 @@ _UNPORTED_DEFAULTS = dict(
     cpe_bottleneck=0,
     enable_rpe=False,
     kmap_mode="direct",
-    chain_cpe0="derive",
     stem_conv="cell_packed",
 )
-# JAX options that pick an implementation, not a result: accepted and ignored
-_IMPLEMENTATION_ONLY = ("attn_impl", "scan_blocks")
+# JAX options that pick an implementation, not a result: accepted and ignored.  chain_cpe0 picks
+# the stage-0 map's source only inside the kmap_mode == "chain" branch (JAX
+# ``point_transformer_v3.py:486-503``), and "direct" is the only mode here
+_IMPLEMENTATION_ONLY = ("attn_impl", "scan_blocks", "chain_cpe0")
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=x.dtype)``: the weight and bias cast to the input's dtype, so
+    bf16 features run a bf16 product whatever the parameters' dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), None if self.bias is None else self.bias.to(x.dtype))
 
 
 class SubMConvCPE(nn.Module):
@@ -80,7 +95,7 @@ class SubMConvCPE(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(kernel_volume, in_channels, channels))
         self.bias = nn.Parameter(torch.zeros(channels))
-        self.linear = nn.Linear(channels, channels)
+        self.linear = Dense(channels, channels)
         self.norm = LayerNorm(channels)
 
     def forward(self, feat: torch.Tensor, kmap: KernelMap) -> torch.Tensor:
@@ -95,8 +110,8 @@ class SerializedAttention(nn.Module):
         self.num_heads = num_heads
         self.patch_size = patch_size
         self.scale = qk_scale or (channels // num_heads) ** -0.5
-        self.qkv = nn.Linear(channels, 3 * channels, bias=qkv_bias)
-        self.proj = nn.Linear(channels, channels)
+        self.qkv = Dense(channels, 3 * channels, bias=qkv_bias)
+        self.proj = Dense(channels, channels)
 
     def forward(self, point: PointBatch, order_index: int) -> torch.Tensor:
         i = order_index % point.serialized_order.shape[0]
@@ -112,8 +127,8 @@ class MLP(nn.Module):
     def __init__(self, channels: int, mlp_ratio: float = 4.0):
         super().__init__()
         hidden = int(channels * mlp_ratio)
-        self.fc1 = nn.Linear(channels, hidden)
-        self.fc2 = nn.Linear(hidden, channels)
+        self.fc1 = Dense(channels, hidden)
+        self.fc2 = Dense(hidden, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))
@@ -147,7 +162,7 @@ class SerializedPooling(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, stride: int = 2, bn_momentum: float = 0.01):
         super().__init__()
         self.levels = max((stride - 1).bit_length(), 1)
-        self.proj = nn.Linear(in_channels, out_channels)
+        self.proj = Dense(in_channels, out_channels)
         self.norm = MaskedBatchNorm(out_channels, momentum=bn_momentum)
 
     def forward(self, point: PointBatch, slot_capacity: int, orders: Sequence[str],
@@ -179,9 +194,9 @@ class SerializedUnpooling(nn.Module):
 
     def __init__(self, in_channels: int, skip_channels: int, out_channels: int):
         super().__init__()
-        self.proj = nn.Linear(in_channels, out_channels)
+        self.proj = Dense(in_channels, out_channels)
         self.proj_norm = LayerNorm(out_channels)
-        self.proj_skip = nn.Linear(skip_channels, out_channels)
+        self.proj_skip = Dense(skip_channels, out_channels)
         self.skip_norm = LayerNorm(out_channels)
 
     def forward(self, pooled: PointBatch, skip: PointBatch, su: SlottedUniqueResult) -> PointBatch:

@@ -2,13 +2,17 @@
 
 The contract of ``tools/serve.py:113-167``: ``POST /predict`` with a raw
 float32 body of N x ``cols`` values (xyz, then features; ``?cols=`` and
-``?method=argmax|weighted`` in the query) answers with the keypoints as raw
-float32, K x 3.  Only the ``offset_keypoint`` task is ported; ``keypoint``
-and ``pigseg`` raise NotImplementedError.
+``?method=argmax|weighted`` in the query) answers with raw float32: the
+keypoints, K x 3, for ``offset_keypoint``; one label per input point, N,
+for ``pigseg`` (``inference/segment.py``; without feature columns the
+normals and curvature are estimated).  ``keypoint`` raises
+NotImplementedError.
 
 Usage:
   python -m pointcept_keypointdetection_tpu_torch.serve --task offset_keypoint \
       --config-file configs/my_dataset/offset_keypoint_ptv3.py --port 8000 [--device cuda]
+  python -m pointcept_keypointdetection_tpu_torch.serve --task pigseg \
+      --config-file configs/pigseg/semseg-ptv3-v1m1-0-base.py --slot-size 32768 [--device cuda]
 
 Without ``--weight`` (a ``state_dict`` saved with ``torch.save``, e.g. from
 ``convert.py``) the weights are seeded (seed 0): the full-width config has no
@@ -21,28 +25,32 @@ import argparse
 import json
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Optional, Union
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
 
 from .inference.keypoint import OffsetKeypointPredictor
+from .inference.segment import SegmentPredictor
 from .utils.config import Config
 
 TASKS = ("keypoint", "offset_keypoint", "pigseg")
+Predictor = Union[OffsetKeypointPredictor, SegmentPredictor]
 
 
 def build_predictor(task: str, cfg: Config, state_dict=None, slot_size: int = 8192,
-                    device: str = "cuda") -> OffsetKeypointPredictor:
+                    device: str = "cuda") -> Predictor:
     if task == "offset_keypoint":
         return OffsetKeypointPredictor(dict(cfg.model), state_dict, slot_size, device)
+    if task == "pigseg":
+        return SegmentPredictor(dict(cfg.model), state_dict, slot_size, device)
     if task in TASKS:
         raise NotImplementedError(f"task {task!r} is not ported to PyTorch yet")
     raise ValueError(f"unknown task {task!r}")
 
 
-def make_handler(predictor: OffsetKeypointPredictor, cols: int):
+def make_handler(predictor: Predictor, cols: int):
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code: int, payload: bytes, content_type: str) -> None:
             self.send_response(code)
@@ -81,7 +89,7 @@ def make_handler(predictor: OffsetKeypointPredictor, cols: int):
     return Handler
 
 
-def make_server(predictor: OffsetKeypointPredictor, host: str = "0.0.0.0", port: int = 8000,
+def make_server(predictor: Predictor, host: str = "0.0.0.0", port: int = 8000,
                 cols: int = 7) -> ThreadingHTTPServer:
     return ThreadingHTTPServer((host, port), make_handler(predictor, cols))
 

@@ -181,7 +181,7 @@ def test_server_answers_like_the_predictor(case):
     assert not thread.is_alive()
     np.testing.assert_allclose(got, predictor.predict(case["coord"], case["feat"], method="weighted"), rtol=1e-6)
     with pytest.raises(NotImplementedError):
-        serve.build_predictor("pigseg", None)
+        serve.build_predictor("keypoint", None)
 
 
 def test_port_imports_no_jax():

@@ -57,8 +57,8 @@ _FLAX_PARENTS = {("cpe", "linear"): "Dense_0", ("cpe", "norm"): "LayerNorm_0", (
 
 
 def jax_variables_for(model: torch.nn.Module, rng: np.random.Generator) -> Dict:
-    """Seeded flax variables for the port's OffsetKeypoint PT-v3m1 ``model``,
-    named as the JAX model names them, without tracing it.  Only for
+    """Seeded flax variables for the port's OffsetKeypoint or DefaultSegmentorV2
+    PT-v3m1 ``model``, named as the JAX model names them, without tracing it.  Only for
     configs whose stages have one Block each (no ``nn.scan`` stacks);
     ``convert.py`` maps the result back onto the model's names."""
     from flax.traverse_util import unflatten_dict
@@ -69,6 +69,8 @@ def jax_variables_for(model: torch.nn.Module, rng: np.random.Generator) -> Dict:
         *parents, leaf = name.split(".")
         if parents[0] == "head":
             path = [f"Dense_{int(parents[1]) // 2}"]
+        elif parents[0] == "seg_head":
+            path = ["seg_head"]
         else:  # backbone.<...>
             path = ["PointTransformerV3_0"] + [_FLAX_PARENTS.get(pair, pair[1]) for pair in zip(parents, parents[1:])]
         shape = tuple(tensor.shape)
