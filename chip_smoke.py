@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's offset-keypoint server and trainer, its pigseg
-server and its segmentation bench on one NVIDIA GPU and hold its
-hand-written kernels against their plain versions.
+server, its segmentation bench and its segmentation trainers on one NVIDIA
+GPU and hold its hand-written kernels against their plain versions.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -55,15 +55,37 @@ Phases, each fatal on failure:
  12. bench kernels: B1 and B3 against their plain versions and timed beside
      their library calls at every bench level in bf16 and f32, B3 on the
      bench's kernel maps, with the sums per bench forward;
- 13. summary: the script's duration, the kernels line (per training step:
-     launches, errors and times of the training levels; B1 and B3 also per
-     bench forward in bf16), then ``{"ok": true, "device": ...}`` last.
+ 13. segmentation trainers: the pigseg recipe as written (f32, CE, AdamW
+     under OneCycleLR, its train transforms and the default hooks) on
+     seeded N x 8 pig clouds the script writes, and the ScanNet PT-v3m1
+     recipe (amp bf16, CE + Lovász, slot 131072) on synthetic 100,000-point
+     rooms at its 0.02 grid, batch 2, no Mix3D: the first epoch of each (4
+     steps, then the SemSegEvaluator and the saver) with each step's
+     launches counted (B1 22, B2 22, B3 44, B4 22, 5 rulebooks), the
+     kernels' input dtypes watched (bf16 under amp) and every amp parameter
+     and gradient held to f32; step median, peak memory, one step under
+     torch.profiler, 4 steps of a fresh trainer on a fixed batch whose loss
+     must fall; the criteria's device time (CE, Lovász) at the amp step's
+     shape;
+ 14. segmentation kernels: B1-B4 against their plain versions at every level
+     of each trainer in its dtype (pigseg f32, amp bf16), the conv kernels on
+     the maps of a batch of its data, each timed per step beside its plain
+     version, its library call and its bound;
+ 15. card against CPU: one step of each segmentation trainer at batch 1 at
+     its slot, the loss, every gradient and the running statistics (pigseg
+     f32 within ``TRAIN_CPU_TOL``; amp bf16 on both sides within
+     ``AMP_CPU_TOL``);
+ 16. summary: the script's duration, the kernels line (per keypoint training
+     step: launches, errors and times of the training levels; B1 and B3 also
+     per bench forward in bf16; B1-B4 per pigseg step, ``pigseg_*``, and per
+     amp step, ``amp_*``), then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -94,6 +116,7 @@ from pointcept_keypointdetection_tpu_torch.kernels import _build
 from pointcept_keypointdetection_tpu_torch.kernels import patch_attention as pa
 from pointcept_keypointdetection_tpu_torch.kernels import sparse_conv as sc
 from pointcept_keypointdetection_tpu_torch.models import build_model, cast_parameters, init_weights
+from pointcept_keypointdetection_tpu_torch.models.losses import build_criteria
 from pointcept_keypointdetection_tpu_torch.ops import sparse as sp
 from pointcept_keypointdetection_tpu_torch.ops.serialization import z_order_encode_np
 from pointcept_keypointdetection_tpu_torch.utils.config import Config
@@ -113,9 +136,12 @@ L2_BYTES = 50 * 2**20
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-3, 8e-3)}
 # card vs CPU, relative to max(1, |cpu|): f32 through 22 blocks in two summation orders read 3.2e-6
 CPU_TOL = 1e-4
-# B4 sums up to 65,536 f32 products per entry in another order than the plain einsum: relative to
-# max|dW|; the readings reach 2.8e-6 (f32) and 1.5e-6 (bf16)
+# B4 sums each entry's products in f32 in another order than the plain einsum: relative to max|dW|, per
+# DW_SUM products in the longest sum (an f32 sum's rounding grows with its length); the readings reach
+# 2.8e-6 (f32) and 1.5e-6 (bf16) at up to 65,536 products, and 2.4e-6 (f32) and 1.0e-5 (bf16) at the
+# segmentation trainers' 163,423-262,144
 DW_TOL = 1e-5
+DW_SUM = 65536
 # one training step, card against CPU, relative to max(1, |cpu|) per tensor: the readings were 0 (loss),
 # 3.2e-5 (gradients, f32 sums in other orders through 22 Blocks and back) and 1.2e-7 (running statistics)
 TRAIN_CPU_TOL = 1e-3
@@ -206,17 +232,27 @@ def surface_kernel_map(rng: np.random.Generator, n: int, z_sorted: bool, valid_f
     return sp.build_kernel_map(index, grid_t, batch, valid, sp.SparseConvSpec.cube(3)).neighbor_idx
 
 
+def card_generator(rng: np.random.Generator) -> torch.Generator:
+    """A generator on the card seeded from ``rng``: large inputs are drawn there, not on the host."""
+    return torch.Generator(device="cuda").manual_seed(int(rng.integers(2**62)))
+
+
+def card_normal(rng: np.random.Generator, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return torch.randn(shape, generator=card_generator(rng), device="cuda").to(dtype)
+
+
 def attention_case(rng, n, heads, patch, dtype):
-    qkv = torch.from_numpy(rng.normal(size=(n, 3, heads, 16)).astype(np.float32)).to("cuda", dtype)
-    valid = torch.from_numpy(rng.random(n) > 0.12).cuda()
+    gen = card_generator(rng)
+    qkv = torch.randn((n, 3, heads, 16), generator=gen, device="cuda").to(dtype)
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.12
     valid[patch : 2 * patch] = False  # one patch without a valid key
     return qkv, valid
 
 
 def conv_case(rng, idx, c, dtype):
     n = idx.shape[0]
-    feat = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to("cuda", dtype)
-    w = torch.from_numpy((rng.normal(size=(27, c, c)) / np.sqrt(27 * c)).astype(np.float32)).to("cuda", dtype)
+    feat = card_normal(rng, (n, c), dtype)
+    w = (card_normal(rng, (27, c, c)) / np.sqrt(27 * c)).to(dtype)
     return feat, w
 
 
@@ -311,10 +347,12 @@ def edge_case_map(rng, n: int = 1000):
 def check_conv_dw(rng, idx, c, dtype) -> float:
     n = idx.shape[0]
     feat, _ = conv_case(rng, idx, c, dtype)
-    g = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to("cuda", dtype)
+    g = card_normal(rng, (n, c), dtype)
     ref = sc.subm_conv_dw_plain(feat, idx, g)
-    return check(f"B4 subm_conv_dw N={n} Cin=Cout={c} K=27 hits={int((idx < n).sum())} {str(dtype)[6:]}",
-                 sc.subm_conv_dw(feat, idx, g), ref, DW_TOL * ref.abs().max().item(), 0.0)
+    longest = int((idx < n).sum(0).max())  # products summed into one entry of dW
+    return check(f"B4 subm_conv_dw N={n} Cin=Cout={c} K=27 hits={int((idx < n).sum())} longest sum {longest} "
+                 f"{str(dtype)[6:]}", sc.subm_conv_dw(feat, idx, g), ref,
+                 DW_TOL * max(1.0, longest / DW_SUM) * ref.abs().max().item(), 0.0)
 
 
 def check_conv_bits(rng, idx, c, dtype) -> None:
@@ -481,7 +519,7 @@ def training_maps(cfg) -> dict:
 
 def attention_bwd_case(rng, n, heads, patch, dtype):
     qkv, valid = attention_case(rng, n, heads, patch, dtype)
-    g = torch.from_numpy(rng.normal(size=(n, heads * 16)).astype(np.float32)).to("cuda", dtype)
+    g = card_normal(rng, (n, heads * 16), dtype)
     _, lse, out32 = pa.patch_attention_with_lse(qkv, valid, patch, 0.25)
     return qkv, valid, out32, lse, g
 
@@ -620,94 +658,147 @@ def profile_step(trainer, run_step) -> dict:
     return profile_run("one training step", run_step)
 
 
-def phase_train(cfg):
-    """The trainer at full width for TRAIN_EPOCHS epochs; returns its step times, launch counts and profile."""
-    # every Block: B1 and B3 forward, B2 and B4 backward, and B3 again for the conv's input gradient
-    blocks = sum(cfg.model.backbone_conf.enc_depths) + sum(cfg.model.backbone_conf.dec_depths)  # 22
+def counted_training(trainer, label: str, bb, check_step=None) -> dict:
+    """``trainer.train()`` with every step's launches and rulebook builds counted and checked (each
+    kernel once per Block of the backbone dict ``bb``, B3 twice; one rulebook per kernel map), the
+    counts set to 0 just before and read just after the run; its step times (host clock), per-step
+    counts, whole-run counts and peak memory.  ``check_step(trainer)`` runs after each step."""
+    # every Block runs B1 and B3 forward, B2 and B4 backward, and B3 again for the conv's input gradient
+    blocks = sum(bb["enc_depths"]) + sum(bb["dec_depths"])  # 22 at full depth
     per_step = {"patch_attention_fwd": blocks, "patch_attention_bwd": blocks, "subm_conv_fwd": 2 * blocks,
                 "subm_conv_dw": blocks}
-    levels = len(cfg.model.backbone_conf.enc_depths)  # kernel maps per step: one rulebook each
+    levels = len(bb["enc_depths"])  # kernel maps per step: one rulebook each
+    steps, step_ms = [], []
+    run_step = trainer.run_step
+
+    def counted_step():
+        before, built = launch_counts(), sc.rulebook_builds
+        t0 = time.perf_counter()
+        run_step()  # ends in the host reading the losses
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        built = sc.rulebook_builds - built
+        steps.append(delta)
+        m = trainer.comm_info["metrics"]
+        print(f"{label} step {len(steps)}: {', '.join(f'{k} {v:.4f}' for k, v in m.items())}, lr "
+              f"{trainer.comm_info['lr']:.4e}, {step_ms[-1]:.1f} ms, launches {delta}, rulebooks built {built} "
+              f"{stamp()}")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label} step {len(steps)}: a loss is not finite: {m}")
+        if delta != per_step:
+            raise AssertionError(f"{label} step {len(steps)}: expected launches {per_step}, got {delta}")
+        if built != levels:
+            raise AssertionError(f"{label} step {len(steps)}: expected {levels} rulebooks (one per map), built {built}")
+        if check_step is not None:
+            check_step(trainer)
+
+    trainer.run_step = counted_step
+    before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_launch_counts_to_zero()
+    try:
+        trainer.train()
+    finally:
+        trainer.run_step = run_step
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    unchanged = [k for k, v in trainer.model.state_dict().items() if torch.equal(v, before[k])]
+    print(f"{label}: {len(steps)} steps; {len(before) - len(unchanged)} of {len(before)} parameter and statistics "
+          f"tensors changed; launches {counts}; peak memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) {stamp()}")
+    if unchanged:
+        raise AssertionError(f"{label}: tensors the training did not change: {unchanged[:8]}")
+    timed = step_ms[1:]  # the first step also warms up cuBLAS and the allocator
+    print(f"{label} step time (host clock, steps 2-{len(step_ms)}): median {statistics.median(timed):.2f} ms, each "
+          f"{[round(x, 2) for x in step_ms]} {stamp()}")
+    return dict(step_ms=step_ms, counts=counts, steps=steps, peak_bytes=peak)
+
+
+def phase_train(cfg):
+    """The trainer at full width for TRAIN_EPOCHS epochs; returns its step times, launch counts and profile."""
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(train_config(tmp), device="cuda")
-        steps, step_ms = [], []
-        run_step = trainer.run_step
-
-        def counted_step():
-            before, built = launch_counts(), sc.rulebook_builds
-            t0 = time.perf_counter()
-            run_step()  # ends in the host reading the losses
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            delta = {k: v - before[k] for k, v in launch_counts().items()}
-            built = sc.rulebook_builds - built
-            steps.append(delta)
-            m = trainer.comm_info["metrics"]
-            print(f"train step {len(steps)}: loss {m['loss']:.4f} (cls {m['cls_loss']:.4f}, reg {m['reg_loss']:.4f}), "
-                  f"{step_ms[-1]:.1f} ms, launches {delta}, rulebooks built {built} {stamp()}")
-            if not all(np.isfinite(v) for v in m.values()):
-                raise AssertionError(f"step {len(steps)}: a loss is not finite: {m}")
-            if delta != per_step:
-                raise AssertionError(f"step {len(steps)}: expected launches {per_step}, got {delta}")
-            if built != levels:
-                raise AssertionError(f"step {len(steps)}: expected {levels} rulebooks (one per map), built {built}")
-
-        trainer.run_step = counted_step
-        before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
-        set_launch_counts_to_zero()
-        trainer.train()
-        counts = launch_counts()
-        if len(steps) != 2 * TRAIN_EPOCHS:
-            raise AssertionError(f"expected {2 * TRAIN_EPOCHS} steps, ran {len(steps)}")
-        unchanged = [k for k, v in trainer.model.state_dict().items() if torch.equal(v, before[k])]
-        print(f"train: {len(steps)} steps; {len(before) - len(unchanged)} of {len(before)} parameter and "
-              f"statistics tensors changed; launches {counts}")
-        if unchanged:
-            raise AssertionError(f"tensors the training did not change: {unchanged[:8]}")
+        run = counted_training(trainer, "train", cfg.model.backbone_conf)
+        if len(run["steps"]) != 2 * TRAIN_EPOCHS:
+            raise AssertionError(f"expected {2 * TRAIN_EPOCHS} steps, ran {len(run['steps'])}")
         metric = trainer.comm_info.get("current_metric_value")
         if metric is None or not np.isfinite(metric):
             raise AssertionError(f"the evaluator gave no finite mm error: {metric}")
         print(f"evaluator: mean keypoint distance {-metric:.2f} mm (argmax) after {TRAIN_EPOCHS} epochs {stamp()}")
-        profile = profile_step(trainer, run_step)
-    return dict(step_ms=step_ms, counts=counts, steps=steps, profile=profile)
+        run["profile"] = profile_step(trainer, trainer.run_step)
+    return run
+
+
+def step_tensors(model, batch_np, device: str, dtype: torch.dtype, label: str) -> dict:
+    """One training step of ``model`` on ``device`` with ``dtype`` features (parameters as they are):
+    {kind: {name: tensor}} of the loss, every gradient and the running statistics."""
+    model.train()
+    batch = sample_to_device(batch_np, device)
+    point = build_point_batch(batch, batch_np["num_samples"])
+    point = point.replace(feat=point.feat.to(dtype))
+    t0 = time.perf_counter()
+    out = model(point, batch)
+    out["loss"].float().backward()
+    print(f"{label}: one training step on {device} ({str(dtype)[6:]} features, {torch.get_num_threads()} CPU "
+          f"threads): {(time.perf_counter() - t0) * 1e3:.1f} ms (host clock) {stamp()}")
+    return {"loss": {"loss": out["loss"].detach()}, "grad": {k: p.grad for k, p in model.named_parameters()},
+            "stat": dict(model.named_buffers())}
+
+
+def worst_errors(got: dict, ref: dict) -> dict:
+    """{kind: (max over tensors of max abs err / max(1, max|ref|), that tensor's name)}."""
+    worst = {}
+    for kind, tensors in ref.items():
+        for name, r in tensors.items():
+            rel = (got[kind][name].cpu().float() - r.float()).abs().max().item() / max(1.0, r.abs().max().item())
+            if rel >= worst.get(kind, (-1.0, ""))[0]:
+                worst[kind] = (rel, name)
+    return worst
+
+
+def compare_step(label: str, model_cfg, batch_np, dtype: torch.dtype, tol: float) -> dict:
+    """One training step, card against CPU, with the same seeded weights and batch: features in
+    ``dtype`` (parameters f32, as ``amp`` has them), the loss, every gradient and the running
+    statistics, each relative to max(1, |cpu|) within ``tol``; returns the worst of each kind.
+    With bf16 features the CPU also takes the step with f32 features, and the CPU's own bf16
+    deviation from it is printed beside the card's error: how far bf16 rounding alone moves a tensor."""
+    cpu_model = init_weights(build_model(model_cfg), torch.Generator().manual_seed(3))
+    initial = copy.deepcopy(cpu_model.state_dict())
+    card_model = build_model(model_cfg)
+    card_model.load_state_dict(initial)
+    card = step_tensors(card_model.cuda(), batch_np, "cuda", dtype, label)
+    cpu = step_tensors(cpu_model, batch_np, "cpu", dtype, label)
+    for kind, tensors in card.items():
+        for name, got in tensors.items():
+            if got.dtype != torch.float32 or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{label}: {kind} {name} on the card is {got.dtype} or not finite")
+    worst = worst_errors(card, cpu)
+    yardstick = {}
+    if dtype != torch.float32:
+        f32_model = build_model(model_cfg)
+        f32_model.load_state_dict(initial)
+        yardstick = worst_errors(cpu, step_tensors(f32_model, batch_np, "cpu", torch.float32, label))
+    for kind, (rel, name) in worst.items():
+        own = (f"; the CPU's {str(dtype)[6:]} step against its f32 step: {yardstick[kind][0]:.3e} "
+               f"({yardstick[kind][1]})") if yardstick else ""
+        print(f"{label}: card vs cpu training step, {kind}: max abs err / max(1, |cpu|) = {rel:.3e} ({name}); "
+              f"tol {tol:g}{own} {stamp()}")
+        if rel > tol:
+            raise AssertionError(f"{label}: card and CPU disagree on {kind} {name}: {rel:.3e} (tol {tol:g})")
+    return worst
 
 
 def phase_train_cpu(cfg) -> None:
-    """One training step, card against CPU: batch 1, no drop path, no order shuffling, same weights
-    and batch; the loss, every gradient and the running statistics, relative to max(1, |cpu|)."""
+    """One keypoint training step, card against CPU: batch 1, no drop path, no order shuffling."""
     model_cfg = dict(cfg.model)
     model_cfg["backbone_conf"] = dict(cfg.model.backbone_conf, drop_path=0.0, shuffle_orders=False)
-    cpu_model = init_weights(build_model(model_cfg), torch.Generator().manual_seed(3))
-    card_model = build_model(model_cfg)
-    card_model.load_state_dict(cpu_model.state_dict())
-    card_model.cuda()
     np.random.seed(5)
     dataset = SyntheticKeypointDataset(split="train", num_scenes=1, num_points=CLOUD_POINTS,
                                        offset_radius=cfg.data.train.offset_radius, transform=cfg.data.train.transform)
-    batch_np = collate([dataset[0]], cfg.slot_size, np.random)
-    outs = []
-    for model, device in ((card_model, "cuda"), (cpu_model, "cpu")):
-        model.train()
-        batch = sample_to_device(batch_np, device)
-        t0 = time.perf_counter()
-        out = model(build_point_batch(batch, 1), batch)
-        out["loss"].backward()
-        outs.append(out)
-        print(f"one training step on {device}: {(time.perf_counter() - t0) * 1e3:.1f} ms (host clock) {stamp()}")
-    worst = {}
-    for kind, card_t, cpu_t in [("loss", {"loss": outs[0]["loss"].detach()}, {"loss": outs[1]["loss"].detach()}),
-                                ("grad", {k: p.grad for k, p in card_model.named_parameters()},
-                                 {k: p.grad for k, p in cpu_model.named_parameters()}),
-                                ("stat", dict(card_model.named_buffers()), dict(cpu_model.named_buffers()))]:
-        for name, ref in cpu_t.items():
-            got = card_t[name].cpu()
-            rel = (got - ref).abs().max().item() / max(1.0, ref.abs().max().item())
-            if not (rel <= TRAIN_CPU_TOL and bool(torch.isfinite(got).all())):
-                raise AssertionError(f"card and CPU disagree on {kind} {name}: {rel:.3e}")
-            if rel >= worst.get(kind, (-1.0, ""))[0]:
-                worst[kind] = (rel, name)
-    for kind, (rel, name) in worst.items():
-        print(f"card vs cpu training step, {kind}: max abs err / max(1, |cpu|) = {rel:.3e} ({name}); "
-              f"tol {TRAIN_CPU_TOL:g} {stamp()}")
+    compare_step("keypoint", model_cfg, collate([dataset[0]], cfg.slot_size, np.random), torch.float32,
+                 TRAIN_CPU_TOL)
 
 
 SOURCES = {  # name: (source, the Pallas kernel body it replaces)
@@ -792,7 +883,7 @@ def time_conv(rng, idx, c, dtype, dw: bool):
 
     def make():
         feat, w = conv_case(rng, idx, c, dtype)
-        g = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to("cuda", dtype)
+        g = card_normal(rng, (n, c), dtype)
         i = idx.clone()
         fp = torch.cat([feat, feat.new_zeros(1, c)])
         return feat, i, w, g, fp, i.long(), w.reshape(27 * c, c), sc.build_rulebook(i)
@@ -1108,6 +1199,244 @@ def phase_bench_kernels(maps) -> dict:
     return sums
 
 
+# ---- the segmentor training slice ------------------------------------------------------------------
+
+SCANNET_CONFIG = "configs/scannet/semseg-pt-v3m1-0-base.py"
+SEMSEG_TRANSFORMS = "configs/synthetic/semseg-spunet-mini.py"  # the synthetic semseg recipe's transforms
+PIG_CLOUD_POINTS = 40000
+PIG_CLOUDS = {"train": 8, "val": 4}
+SEG_STEPS = 4  # trainer steps of each segmentation recipe: its first epoch
+PROBE_STEPS = 4  # steps on one fixed batch, whose loss must fall
+SCANNET_POINTS = 100_000  # points per synthetic room, ScanNet's scale at its 0.02 grid
+SCANNET_GRID = 0.02
+SCANNET_BATCH = 2  # the recipe's 8 is a global batch over devices; one card holds 2 at slot 131072
+# one amp training step (bf16 features, f32 parameters), the card against the CPU in bf16 on the same input,
+# relative to max(1, |cpu|) per tensor: the card read 0.0425 (the stem weight's gradient; loss 1.1e-4,
+# running statistics 3.5e-4), where the CPU's own bf16 step reads 0.0566 against its f32 step on the same
+# input, so bf16 rounding alone moves that gradient this far; about twice the reading leaves room for the
+# seeded data, and an amp path that is wrong (a kernel off, a cast missing) errs by the gradient's own size
+AMP_CPU_TOL = 0.1
+# the kernels each spy watches: (module, attribute, kernel)
+SPIED = ((pa, "_forward_kernel", "patch_attention_fwd"), (pa, "patch_attention_backward", "patch_attention_bwd"),
+         (sc, "subm_conv", "subm_conv_fwd"), (sc, "subm_conv_dw", "subm_conv_dw"))
+
+
+def pig_cloud(rng: np.random.Generator, n: int) -> np.ndarray:
+    """An N x 8 pig scan as the pigseg data holds it: xyz (mm), normal, curvature, label: a body-like
+    surface (label 1, 2/3 of the points) standing on a floor (label 0)."""
+    nb = n * 2 // 3
+    body = body_cloud(rng, nb)
+    floor = np.stack([rng.uniform(-1200, 1200, n - nb), rng.uniform(-800, 800, n - nb), rng.normal(-700, 2, n - nb)],
+                     1)
+    normal = np.zeros((n, 3))
+    normal[:nb] = body / np.linalg.norm(body, axis=1, keepdims=True)
+    normal[nb:, 2] = 1
+    curvature = np.concatenate([rng.uniform(0, 0.2, nb), np.zeros(n - nb)])[:, None]
+    label = (np.arange(n) < nb)[:, None]
+    return np.concatenate([np.concatenate([body, floor]), normal, curvature, label], 1).astype(np.float32)
+
+
+def write_pig_clouds(root: str, seed: int = 7) -> None:
+    rng = np.random.default_rng(seed)
+    for split, k in PIG_CLOUDS.items():
+        os.makedirs(os.path.join(root, split))
+        for i in range(k):
+            np.save(os.path.join(root, split, f"pig{i}.npy"), pig_cloud(rng, PIG_CLOUD_POINTS))
+
+
+def pigseg_train_config(root: str):
+    """The pigseg recipe as written, its data roots on seeded clouds: SEG_STEPS steps of batch 8 per epoch."""
+    cfg = Config.fromfile(SEG_CONFIG)
+    cfg.merge_from_dict({"save_path": os.path.join(root, "exp"), "seed": 0, "data.train.data_root": root,
+                         "data.val.data_root": root,
+                         "data.train.loop": SEG_STEPS * cfg.batch_size // PIG_CLOUDS["train"]})
+    return cfg
+
+
+def scannet_data(split: str, scenes: int, points: int):
+    """SyntheticSemSegDataset rooms through the synthetic semseg recipe's transforms at ScanNet's grid."""
+    transform = [dict(t, grid_size=SCANNET_GRID) if t["type"] == "GridSample" else dict(t)
+                 for t in Config.fromfile(SEMSEG_TRANSFORMS).data[split].transform]
+    return dict(_delete_=True, type="SyntheticSemSegDataset", split=split, num_scenes=scenes, num_points=points,
+                num_classes=20, transform=transform)
+
+
+def scannet_train_config(save_path: str):
+    """The ScanNet PT-v3m1 recipe (amp bf16, CE + Lovász, AdamW 0.006 under OneCycleLR, slot 131072, its
+    top-level param_dicts ignored as JAX ignores it) on synthetic rooms, no Mix3D, batch SCANNET_BATCH."""
+    cfg = Config.fromfile(SCANNET_CONFIG)
+    cfg.merge_from_dict({"save_path": save_path, "seed": 0, "mix_prob": 0.0, "batch_size": SCANNET_BATCH,
+                         "data.train": scannet_data("train", SEG_STEPS * SCANNET_BATCH, SCANNET_POINTS),
+                         "data.val": scannet_data("val", SCANNET_BATCH, SCANNET_POINTS)})
+    return cfg
+
+
+class KernelDtypes:
+    """The dtypes each kernel's wrapper receives while it is entered, over all its entries (the
+    wrappers count as before)."""
+
+    def __init__(self):
+        self.seen = {name: set() for *_, name in SPIED}
+
+    def __enter__(self):
+        self.saved = []
+        for mod, attr, name in SPIED:
+            fn = getattr(mod, attr)
+
+            def spy(x, *args, _fn=fn, _name=name, **kwargs):
+                self.seen[_name].add(str(x.dtype)[6:])
+                return _fn(x, *args, **kwargs)
+
+            setattr(mod, attr, spy)
+            self.saved.append((mod, attr, fn))
+        return self.seen
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def params_and_grads_f32(trainer) -> None:
+    bad = [k for k, p in trainer.model.named_parameters()
+           if p.dtype != torch.float32 or p.grad is None or p.grad.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"parameters or gradients not float32 after an amp step: {bad[:8]}")
+
+
+def phase_seg_train(label: str, cfg, dtype: torch.dtype) -> dict:
+    """A segmentation recipe's trainer at full width on the card, with its hooks: the first of its epochs
+    (SEG_STEPS steps, then the SemSegEvaluator over the val clouds and the saver), each step's launches
+    and rulebooks counted, the kernels' input dtypes watched (``dtype`` everywhere), under amp every
+    parameter and gradient checked to stay f32; then one step under torch.profiler, the kernel maps of a
+    batch of the recipe's data, and PROBE_STEPS steps of a fresh trainer on that batch (its loss must
+    fall)."""
+    bb = cfg.model.backbone
+    trainer = Trainer(cfg, device="cuda")
+    total = len(trainer.train_loader) * trainer.max_epoch
+    trainer.max_epoch = 1  # the recipe's first epoch; the schedule keeps the whole run's length
+    print(f"{label}: {len(trainer.train_loader)} steps of batch {cfg.batch_size} per epoch, slot {cfg.slot_size}, "
+          f"amp {cfg.get('amp')}, criteria {[c['type'] for c in cfg.model.criteria]}, {cfg.scheduler['type']} over "
+          f"{total} steps (lr {trainer.lr_schedule(0):.4e} at step 0), "
+          f"{sum(p.numel() for p in trainer.model.parameters())} parameters in "
+          f"{len(trainer.optimizer.param_groups)} group")
+    check = params_and_grads_f32 if dtype != torch.float32 else None
+    spies, run_step = KernelDtypes(), trainer.run_step
+
+    def watched_step():  # the training steps only: the evaluator runs its forward in f32, as JAX's does
+        with spies:
+            run_step()
+
+    trainer.run_step = watched_step
+    run = counted_training(trainer, label, bb, check)
+    trainer.run_step = run_step
+    seen = spies.seen
+    print(f"{label}: dtypes the kernels received in the training steps: {seen}")
+    if any(kinds != {str(dtype)[6:]} for kinds in seen.values()):
+        raise AssertionError(f"{label}: expected every kernel in {dtype}, got {seen}")
+    if len(run["steps"]) != SEG_STEPS:
+        raise AssertionError(f"{label}: expected {SEG_STEPS} steps, ran {len(run['steps'])}")
+    miou = trainer.comm_info.get("current_metric_value")
+    if miou is None or not 0.0 <= miou <= 1.0:
+        raise AssertionError(f"{label}: the evaluator gave no mIoU in [0, 1]: {miou}")
+    print(f"{label}: SemSegEvaluator over {len(trainer.val_loader.dataset)} val clouds: mIoU {miou:.4f} after "
+          f"{SEG_STEPS} steps {stamp()}")
+    run["profile"] = profile_step(trainer, trainer.run_step)
+    batch = next(iter(trainer.train_loader))
+    model = trainer.model.eval()
+    with torch.no_grad():
+        run["maps"] = capture_maps(model, lambda: model(build_point_batch(sample_to_device(batch, "cuda"),
+                                                                          batch["num_samples"])), label)
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # a fresh trainer of the same seed (the same initial weights) on one fixed batch: the run above
+    # drives the loss of these easy synthetic labels near 0 within its 4 steps, where drop path's
+    # draws move it more than a step does
+    probe = Trainer(cfg, device="cuda")
+    losses = []
+    for _ in range(PROBE_STEPS):
+        probe.comm_info["input_dict"] = batch
+        probe.run_step()
+        losses.append(probe.comm_info["metrics"]["loss"])
+    print(f"{label}: {PROBE_STEPS} steps of a fresh trainer on one fixed batch: losses "
+          f"{[round(x, 5) for x in losses]} {stamp()}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: the loss did not fall on a fixed batch: {losses}")
+    del probe
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_lovasz(n: int, classes: int) -> dict:
+    """Device time of the ScanNet recipe's criteria, CE and Lovász forward + backward, on [n, classes] logits."""
+    rng = np.random.default_rng(8)
+    logits = torch.from_numpy(rng.normal(size=(n, classes)).astype(np.float32)).cuda().requires_grad_()
+    segment = torch.from_numpy(rng.integers(-1, classes, n).astype(np.int32)).cuda()
+    valid = torch.from_numpy(rng.random(n) > 0.15).cuda()
+    out = {}
+    for crit in Config.fromfile(SCANNET_CONFIG).model.criteria:
+        loss = build_criteria([crit])
+        loss(logits, segment, valid=valid).backward()  # warm-up
+        out[crit["type"]] = profile_run(f"{crit['type']} forward + backward at [{n}, {classes}]",
+                                        lambda: loss(logits, segment, valid=valid).backward(), top=6)
+    return out
+
+
+def seg_shapes(bb, slot: int, batch: int):
+    """{(N, C, H, patch): Blocks per step} of a segmentation trainer's levels."""
+    shapes = {}
+    for n, c, heads, patch, depth in level_shapes(bb, slot):
+        key = (n * batch, c, heads, patch)
+        shapes[key] = shapes.get(key, 0) + depth
+    return shapes
+
+
+def phase_seg_kernels(label: str, bb, slot: int, batch: int, maps: dict, dtype: torch.dtype, launches: dict):
+    """B1-B4 against their plain versions at every level of a segmentation trainer, in its dtype, the conv
+    kernels on the maps of a batch of its data, each timed beside its library call and its bound; returns
+    per-step sums (times over a step's launches) and each kernel's largest error."""
+    rng = np.random.default_rng(9)
+    per_step, errors = {}, dict.fromkeys(SOURCES, 0.0)
+    per_block = {"patch_attention_fwd": 1, "patch_attention_bwd": 1, "subm_conv_fwd": 2, "subm_conv_dw": 1}
+    for (n, c, heads, patch), depth in seg_shapes(bb, slot, batch).items():
+        idx = maps[n]
+        found = {"patch_attention_fwd": check_attention(rng, n, heads, patch, dtype),
+                 "patch_attention_bwd": check_attention_bwd(rng, n, heads, patch, dtype),
+                 "subm_conv_fwd": check_conv(rng, idx, c, dtype),
+                 "subm_conv_dw": check_conv_dw(rng, idx, c, dtype)}
+        for name, err in found.items():
+            errors[name] = max(errors[name], err)
+        print(f"{label} level N={n} C={c} H={heads} patch={patch} {str(dtype)[6:]} (x{depth} Blocks per step):")
+        rows = {"patch_attention_fwd": time_attention(rng, n, heads, patch, dtype, backward=False),
+                "patch_attention_bwd": time_attention(rng, n, heads, patch, dtype, backward=True),
+                "subm_conv_fwd": time_conv(rng, idx, c, dtype, dw=False),
+                "subm_conv_dw": time_conv(rng, idx, c, dtype, dw=True)}
+        for name, row in rows.items():
+            add_row(per_step, name, row, per_block[name] * depth)
+    for name, t in per_step.items():
+        if launches[name] != sum(per_block[name] * d for d in seg_shapes(bb, slot, batch).values()):
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times per step, not once per Block")
+        print(f"{name} per {label} step ({str(dtype)[6:]}, sum over its {launches[name]} launches): kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms {stamp()}")
+    return per_step, errors
+
+
+def phase_seg_train_cpu(pig_cfg, scannet_cfg) -> dict:
+    """One training step of each segmentation recipe at batch 1 (one sample of its training data,
+    seed 5, at its slot), card against CPU, no drop path and no order shuffling: pigseg in f32 within
+    TRAIN_CPU_TOL, the ScanNet recipe with bf16 features on both within AMP_CPU_TOL."""
+    worst = {}
+    for label, cfg, dtype, tol in (("pigseg", pig_cfg, torch.float32, TRAIN_CPU_TOL),
+                                   ("scannet amp", scannet_cfg, torch.bfloat16, AMP_CPU_TOL)):
+        model_cfg = dict(cfg.model)
+        model_cfg["backbone"] = dict(cfg.model.backbone, drop_path=0.0, shuffle_orders=False)
+        np.random.seed(5)
+        batch_np = collate([build_dataset(dict(cfg.data.train))[0]], cfg.slot_size, np.random)
+        worst[label] = compare_step(label, model_cfg, batch_np, dtype, tol)
+    return worst
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -1136,6 +1465,27 @@ def main() -> None:
             row.update(bench_launches=run["bfloat16"][row["name"]], bench_ms=t["ms"],
                        bench_plain_ms=t["plain_ms"], bench_library_ms=t["library_ms"], bench_bound_ms=t["bound_ms"],
                        bench_bound_by="operations" if t["t_ops"] >= t["t_bytes"] else "bytes")
+    with tempfile.TemporaryDirectory() as root:
+        write_pig_clouds(root)
+        seg = {}
+        for key, label, cfg, dtype in (("pigseg", "pigseg train", pigseg_train_config(root), torch.float32),
+                                       ("amp", "scannet amp train", scannet_train_config(os.path.join(root, "scannet")),
+                                        torch.bfloat16)):
+            trained = phase_seg_train(label, cfg, dtype)
+            if key == "amp":
+                phase_lovasz(cfg.batch_size * cfg.slot_size, cfg.model.num_classes)
+            step = trained["steps"][-1]
+            sums, errs = phase_seg_kernels(key, cfg.model.backbone, cfg.slot_size, cfg.batch_size, trained.pop("maps"),
+                                           dtype, step)
+            seg[key] = (cfg, step, sums, errs)
+        phase_seg_train_cpu(seg["pigseg"][0], seg["amp"][0])
+    for row in kernels:  # B1-B4 per step of the pigseg trainer (f32) and the ScanNet recipe's (amp, bf16)
+        for key, (_, step, sums, errs) in seg.items():
+            t = sums[row["name"]]
+            row.update({f"{key}_launches": step[row["name"]], f"{key}_max_abs_err": errs[row["name"]],
+                        f"{key}_ms": t["ms"], f"{key}_plain_ms": t["plain_ms"], f"{key}_library_ms": t["library_ms"],
+                        f"{key}_bound_ms": t["bound_ms"],
+                        f"{key}_bound_by": "operations" if t["t_ops"] >= t["t_bytes"] else "bytes"})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s {stamp()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

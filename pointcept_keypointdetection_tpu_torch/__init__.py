@@ -10,5 +10,8 @@ Ported so far: the offset-keypoint inference path over PT-v3m1
 training path (``engines.train.Trainer``, ``train``); the segmentation
 inference path of ``DefaultSegmentorV2`` in f32 and bf16
 (``inference.segment.SegmentPredictor``, ``serve --task pigseg``, and
-``bench``, the counterpart of the repository's ``bench.py``).
+``bench``, the counterpart of the repository's ``bench.py``); and its
+training path (``models.losses``, ``OneCycleLR``, ``amp``, the segmentation
+transforms and datasets, ``SemSegEvaluator``) for the pigseg and ScanNet
+PT-v3m1 recipes.
 """

@@ -1,4 +1,4 @@
-"""Data: padded-slot collation, the loader, the config's transforms and the synthetic dataset."""
+"""Data: padded-slot collation, the loader, the config's transforms and the datasets."""
 
 from .builder import DATASETS, build_dataset  # noqa: F401
-from . import synthetic  # noqa: F401  (registers SyntheticKeypointDataset)
+from . import pigseg, synthetic  # noqa: F401  (register the datasets)

@@ -1,8 +1,9 @@
 """Seeded synthetic point clouds for smoke runs, training and tests.
 
-``make_pig`` and ``SyntheticKeypointDataset`` are copies of
-``pointcept_keypointdetection_tpu/datasets/synthetic.py:127-205``: the same
-seed gives the same scenes and the same mm-unit offset and mask targets.
+``make_scene``, ``SyntheticSemSegDataset``, ``make_pig`` and
+``SyntheticKeypointDataset`` are copies of ``pointcept_keypointdetection_tpu/
+datasets/synthetic.py``: the same seed gives the same scenes, labels and
+mm-unit offset and mask targets.
 """
 
 from __future__ import annotations
@@ -31,6 +32,70 @@ def body_cloud(rng: np.random.Generator, n: int) -> np.ndarray:
         a = rng.uniform(0, 2 * np.pi, m)
         parts.append(np.stack([x + 60 * np.cos(a), y + 60 * np.sin(a), rng.uniform(-700, -250, m)], 1))
     return (np.concatenate(parts) + rng.normal(0, 2, (n, 3))).astype(np.float32)
+
+
+def make_scene(rng: np.random.Generator, num_points: int, num_classes: int):
+    """A toy room (`synthetic.py:17-60`): a floor plane (class 0), a wall plane
+    (class 1) and blobs whose class follows their height band; each blob is one
+    instance, floor and wall are instance -1; colour is a per-class tint plus noise."""
+    n_floor = num_points // 3
+    n_wall = num_points // 3
+    n_obj = num_points - n_floor - n_wall
+    floor = np.stack([rng.uniform(0, 4, n_floor), rng.uniform(0, 4, n_floor), rng.normal(0, 0.01, n_floor)], 1)
+    wall = np.stack([rng.uniform(0, 4, n_wall), rng.normal(0, 0.01, n_wall), rng.uniform(0, 2, n_wall)], 1)
+    objs, labels, inst_ids = [], [], []
+    n_left = n_obj
+    inst = 0
+    while n_left > 0:
+        k = int(min(rng.integers(200, 600), n_left))
+        center = np.array([rng.uniform(0.5, 3.5), rng.uniform(0.5, 3.5), rng.uniform(0.2, 1.0)])
+        pts = center + rng.normal(0, 0.15, (k, 3))
+        bands = max(num_classes - 2, 1)
+        cls = 2 + min(int((center[2] - 0.2) / 0.8 * bands), bands - 1)
+        objs.append(pts)
+        labels.append(np.full(k, cls))
+        inst_ids.append(np.full(k, inst))
+        inst += 1
+        n_left -= k
+    coord = np.concatenate([floor, wall] + objs).astype(np.float32)
+    segment = np.concatenate([np.zeros(n_floor), np.ones(n_wall)] + labels).astype(np.int32)
+    segment = np.minimum(segment, num_classes - 1)
+    instance = np.concatenate([np.full(n_floor, -1), np.full(n_wall, -1)] + inst_ids).astype(np.int32)
+    base = (coord - coord.min(0)) / (np.ptp(coord, axis=0) + 1e-6) * 60
+    tint = np.stack([(segment * 53) % 256, (segment * 101) % 256, (segment * 197) % 256], 1)
+    color = np.clip(0.7 * tint + base + rng.normal(0, 8, coord.shape), 0, 255)
+    return coord, color.astype(np.float32), segment, instance
+
+
+@DATASETS.register_module()
+class SyntheticSemSegDataset:
+    """Synthetic rooms for semantic segmentation, in train and val modes
+    (`synthetic.py:63-122`); scene i of a split is ``make_scene`` seeded with
+    seed + i (+ 10,000 outside train).  Test mode (fragments for the tester)
+    is not ported yet."""
+
+    def __init__(self, split="train", num_scenes=8, num_points=8192, num_classes=6, transform=None, seed=0, loop=1,
+                 test_mode=False, test_cfg=None):
+        if test_mode:
+            raise NotImplementedError("SyntheticSemSegDataset: test mode is not ported yet")
+        self.num_scenes = num_scenes
+        self.num_points = num_points
+        self.num_classes = num_classes
+        self.transform = Compose(transform)
+        self.seed = seed + (0 if split == "train" else 10_000)
+        self.loop = loop
+
+    def get_data(self, idx):
+        idx = idx % self.num_scenes
+        rng = np.random.default_rng(self.seed + idx)
+        coord, color, segment, instance = make_scene(rng, self.num_points, self.num_classes)
+        return dict(coord=coord, color=color, segment=segment, instance=instance, name=f"scene{idx}")
+
+    def __getitem__(self, idx):
+        return self.transform(self.get_data(idx))
+
+    def __len__(self):
+        return self.num_scenes * self.loop
 
 
 def make_pig(rng: np.random.Generator, num_points: int):

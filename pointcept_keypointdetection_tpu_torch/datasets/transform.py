@@ -1,10 +1,14 @@
-"""Host-side (numpy) transforms of the repo's offset-keypoint training config.
+"""Host-side (numpy) transforms of the repo's offset-keypoint and segmentation
+training configs.
 
 The port's copies of ``pointcept_keypointdetection_tpu/datasets/
-transform.py:61-110, 383-523``: ``Compose``, ``Collect``, ``Update``,
-``GridSample`` (train mode) and ``ShufflePoint``.  Their random draws come
-from the global ``np.random`` stream, as in the JAX package, so the same
-seed gives the same samples.  The other transforms are not ported yet.
+transform.py``: ``Compose``, ``Collect``, ``Update``, ``NormalizeColor``,
+``CenterShift``, ``RandomRotate``, ``RandomScale``, ``RandomFlip``,
+``RandomJitter``, ``GridSample`` (train mode) and ``ShufflePoint``.  Their
+random draws come from the global ``np.random`` stream in the JAX package's
+order, and they keep its dtypes (a rotation or a scale turns f32
+coordinates into f64), so the same seed gives the same arrays.  The other
+transforms are not ported yet.
 """
 
 from __future__ import annotations
@@ -74,6 +78,110 @@ class Update:
 
     def __call__(self, data_dict):
         data_dict.update(self.keys_dict)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class NormalizeColor:
+    """color / 255 (`transform.py:121`, this fork's convention)."""
+
+    def __call__(self, data_dict):
+        if "color" in data_dict:
+            data_dict["color"] = data_dict["color"] / 255
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class CenterShift:
+    """Centre x and y on their range's midpoint and, with ``apply_z``, put the lowest z at 0."""
+
+    def __init__(self, apply_z=True):
+        self.apply_z = apply_z
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"]
+        x_min, y_min, z_min = coord.min(axis=0)
+        x_max, y_max, _ = coord.max(axis=0)
+        shift = [(x_min + x_max) / 2, (y_min + y_max) / 2, z_min if self.apply_z else 0]
+        data_dict["coord"] = coord - shift
+        return data_dict
+
+
+def _rotation_matrix(axis: str, angle: float) -> np.ndarray:
+    c, s = np.cos(angle), np.sin(angle)
+    if axis == "x":
+        return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+    if axis == "y":
+        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+
+
+@TRANSFORMS.register_module()
+class RandomRotate:
+    """With probability ``p`` (1 with ``always_apply``), rotate about ``axis`` by
+    uniform(angle) * pi around ``center`` (default: the middle of the cloud's
+    bounding box); normals turn with it.  (JAX's ``keypoint_keys``, which no
+    config sets, is not ported.)"""
+
+    def __init__(self, angle=None, center=None, axis="z", always_apply=False, p=0.5):
+        self.angle = [-1, 1] if angle is None else angle
+        self.axis = axis
+        self.p = p if not always_apply else 1.0
+        self.center = center
+
+    def __call__(self, data_dict):
+        if np.random.random() > self.p:
+            return data_dict
+        angle = np.random.uniform(self.angle[0], self.angle[1]) * np.pi
+        rot = _rotation_matrix(self.axis, angle)
+        coord = data_dict["coord"]
+        if self.center is None:
+            center = (coord.min(0) + coord.max(0)) / 2
+        else:
+            center = self.center
+        data_dict["coord"] = (coord - center) @ rot.T + center
+        if "normal" in data_dict:
+            data_dict["normal"] = data_dict["normal"] @ rot.T
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomScale:
+    def __init__(self, scale=None, anisotropic=False):
+        self.scale = scale if scale is not None else [0.95, 1.05]
+        self.anisotropic = anisotropic
+
+    def __call__(self, data_dict):
+        s = np.random.uniform(self.scale[0], self.scale[1], 3 if self.anisotropic else 1)
+        data_dict["coord"] = data_dict["coord"] * s
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomFlip:
+    """Negate x, then y, each with probability ``p`` (one draw per axis), in place."""
+
+    def __init__(self, p=0.5):
+        self.p = p
+
+    def __call__(self, data_dict):
+        for axis in (0, 1):
+            if np.random.random() < self.p:
+                data_dict["coord"][:, axis] = -data_dict["coord"][:, axis]
+                if "normal" in data_dict:
+                    data_dict["normal"][:, axis] = -data_dict["normal"][:, axis]
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomJitter:
+    def __init__(self, sigma=0.01, clip=0.05):
+        self.sigma = sigma
+        self.clip = clip
+
+    def __call__(self, data_dict):
+        jitter = np.clip(self.sigma * np.random.randn(*data_dict["coord"].shape), -self.clip, self.clip)
+        data_dict["coord"] = data_dict["coord"] + jitter
         return data_dict
 
 

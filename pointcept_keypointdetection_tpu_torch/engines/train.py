@@ -12,7 +12,14 @@ taken so far, and the step count.  Randomness: the global ``np.random``
 model's order shuffles and drop path draw from one ``torch.Generator``
 seeded from it, and the initial weights from another.
 
-Not ported (raise NotImplementedError): ``amp``, ``remat``,
+``amp`` ("bf16" or "fp16") is JAX's (`engines/train.py:219-234`): only the
+input features are cast, the parameters stay f32 and get f32 gradients,
+every Dense computes in the features' dtype, and the loss is cast to f32;
+no autocast and no loss scaling.  The kernels take f32 and bf16, so "fp16"
+runs on the CPU only.  A top-level ``param_dicts`` is ignored, as JAX
+ignores it (it reads ``optimizer.param_dicts`` only, which the port refuses).
+
+Not ported (raise NotImplementedError): ``remat``,
 ``gradient_accumulation_steps`` > 1, ``ema``, ``mix_prob`` > 0, model
 parallelism and ``MultiDatasetTrainer``.
 """
@@ -40,9 +47,10 @@ from .common import build_point_batch, sample_to_device
 from .hooks import build_hooks
 
 TRAINERS = Registry("trainers")
+AMP_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
 
 # config keys whose set values select paths the port does not have yet
-_UNPORTED = dict(amp=None, remat=False, gradient_accumulation_steps=1, ema=None, mix_prob=0.0, model_parallel=1)
+_UNPORTED = dict(remat=False, gradient_accumulation_steps=1, ema=None, mix_prob=0.0, model_parallel=1)
 
 
 class TrainerBase:
@@ -94,6 +102,10 @@ class Trainer(TrainerBase):
         for key, default in _UNPORTED.items():
             if (cfg.get(key) or default) != default:
                 raise NotImplementedError(f"Trainer: {key}={cfg.get(key)!r} is not ported yet")
+        amp = cfg.get("amp")
+        if amp is not None and amp not in AMP_DTYPES:
+            raise ValueError(f"Trainer: amp must be one of {sorted(AMP_DTYPES)} or None, got {amp!r}")
+        self.amp_dtype = AMP_DTYPES.get(amp)
         self.cfg = cfg
         self.max_epoch = cfg.eval_epoch
         self.best_metric_value = -float("inf")
@@ -134,11 +146,14 @@ class Trainer(TrainerBase):
         batch_np = self.comm_info["input_dict"]
         batch = sample_to_device(batch_np, self.device)
         point = build_point_batch(batch, batch_np["num_samples"])
+        if self.amp_dtype is not None:
+            point = point.replace(feat=point.feat.to(self.amp_dtype))
         lr = self.lr_schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.model.train()
         out = self.model(point, batch, self.generator)
+        out["loss"] = out["loss"].float()
         self.optimizer.zero_grad(set_to_none=True)
         out["loss"].backward()
         if self.cfg.get("clip_grad"):

@@ -270,7 +270,10 @@ class SubmConvFunction(torch.autograd.Function):
     """``subm_conv`` with the scatter-free backward of ``_subm_conv_sym``:
     dfeat = subm_conv(g, idx, mirrored W) (kernel B3), dW = subm_conv_dw
     (kernel B4) cast to W's dtype, all three over one ``rulebook`` (built
-    here on the card when not given).  ``idx`` gets no gradient."""
+    here on the card when not given).  ``idx`` gets no gradient.  W may be
+    f32 under bf16 features (``amp``): it is cast to the features' dtype
+    inside, as ``_subm_conv_sym`` casts it, so B4's f32 dW reaches an f32
+    parameter unrounded."""
 
     @staticmethod
     def forward(ctx, feat, idx, weight, rulebook=None):
@@ -278,13 +281,15 @@ class SubmConvFunction(torch.autograd.Function):
             rulebook = build_rulebook(idx)
         ctx.save_for_backward(feat, idx, weight)
         ctx.rulebook = rulebook
-        return subm_conv(feat, idx, weight, rulebook)
+        return subm_conv(feat, idx, weight.to(feat.dtype), rulebook)
 
     @staticmethod
     def backward(ctx, grad):
         feat, idx, weight = ctx.saved_tensors
         rb = ctx.rulebook
         grad = grad.contiguous()
-        dfeat = subm_conv(grad, idx, mirrored_weight(weight), rb) if ctx.needs_input_grad[0] else None
+        dfeat = None
+        if ctx.needs_input_grad[0]:
+            dfeat = subm_conv(grad, idx, mirrored_weight(weight.to(grad.dtype)), rb)
         dweight = subm_conv_dw(feat, idx, grad, rb).to(weight.dtype) if ctx.needs_input_grad[2] else None
         return dfeat, None, dweight, None

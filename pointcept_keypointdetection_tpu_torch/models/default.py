@@ -4,8 +4,10 @@
 The backbone returns per-point features and the wrapper owns a linear seg
 head.  The head is flax ``nn.Dense`` without a ``dtype``, so it computes in
 the promoted dtype of its input and its parameters: bf16 in the bench, where
-both are bf16.  Losses are not ported: with targets (``segment``) in the
-batch and ``criteria`` configured, the forward raises.
+both are bf16, and f32 under ``amp``, where the features are bf16 and the
+parameters f32.  With targets (``segment``) in the batch and ``criteria``
+configured, ``loss`` is ``criteria(logits, segment, valid=point.valid)``;
+the losses compute in f32 whatever the logits' dtype.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .builder import MODELS, build_model
+from .losses import build_criteria
 from .structure import PointBatch
 
 
@@ -29,13 +32,14 @@ class DefaultSegmentorV2(nn.Module):
         super().__init__()
         self.backbone = build_model(dict(backbone))
         self.seg_head = nn.Linear(backbone_out_channels, num_classes)
-        self.criteria = tuple(criteria)
+        self.criteria = build_criteria([dict(c) for c in criteria])
 
     def forward(self, point: PointBatch, batch: Optional[Dict[str, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        if batch is not None and "segment" in batch and self.criteria:
-            raise NotImplementedError("DefaultSegmentorV2: the segmentation losses are not ported yet")
         feat = self.backbone(point, generator)
         dtype = torch.promote_types(feat.dtype, self.seg_head.weight.dtype)
         logits = F.linear(feat.to(dtype), self.seg_head.weight.to(dtype), self.seg_head.bias.to(dtype))
-        return {"seg_logits": logits}
+        out = {"seg_logits": logits}
+        if batch is not None and "segment" in batch and self.criteria.criteria:
+            out["loss"] = self.criteria(logits, batch["segment"], valid=point.valid)
+        return out

@@ -275,7 +275,7 @@ def sparse_conv(
     mirror identity the backward uses.  On the card the kernels walk the
     map's rulebook."""
     rulebook = kmap.rulebook() if feat.device.type == "cuda" else None
-    out = SubmConvFunction.apply(feat, kmap.neighbor_idx, weight.to(feat.dtype), rulebook)
+    out = SubmConvFunction.apply(feat, kmap.neighbor_idx, weight, rulebook)  # casts W to feat's dtype
     if bias is not None:
         out = out + bias.to(feat.dtype)
     return out

@@ -1,10 +1,10 @@
 """The port's OffsetKeypoint PT-v3m1, predictor and server against the JAX package.
 
-A small model (3 stages, stage 1 of depth 2 so that ``convert.py`` splits an
-``nn.scan`` stack, channels <= 32, patch 32, slot 256, k=5 stem) gets seeded
+A small model (2 stages, stage 1 of depth 2 so that ``convert.py`` splits an
+``nn.scan`` stack, channels <= 24, patch 32, slot 256, k=5 stem) gets seeded
 JAX parameters (``jax.eval_shape`` shapes, numpy values), one jitted JAX
 apply, and the same weights converted into the port.  Outputs on valid rows
-agree within 5e-5 (f32 sums in another order through eight blocks).
+agree within 5e-5 (f32 sums in another order through four blocks).
 """
 
 import functools
@@ -41,11 +41,12 @@ CFG = dict(
     num_keypoints=6,
     hidden_dim=32,
     backbone_conf=dict(
-        type="PT-v3m1", in_channels=4, stride=(2, 2), enc_depths=(1, 2, 1), enc_channels=(16, 24, 32),
-        enc_num_head=(1, 2, 2), enc_patch_size=(32, 32, 32), dec_depths=(1, 1), dec_channels=(16, 24),
-        dec_num_head=(1, 2), dec_patch_size=(32, 32), slot_divisors=(1, 2, 4), drop_path=0.0,
+        type="PT-v3m1", in_channels=4, stride=(2,), enc_depths=(1, 2), enc_channels=(16, 24),
+        enc_num_head=(1, 2), enc_patch_size=(32, 32), dec_depths=(1,), dec_channels=(16,),
+        dec_num_head=(1,), dec_patch_size=(32,), slot_divisors=(1, 2), drop_path=0.0,
     ),
 )
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
 def _cloud(seed, n):
@@ -75,9 +76,9 @@ def case():
     data, centroid, scale = predictor.prepare(coord, feat, GRID)
     batch = pad_sample(data, SLOT)
     assert 0 < data["coord"].shape[0] < SLOT  # pads present
-    out = jax.jit(lambda v, b: model.apply(v, point_of(b), b, train=False))(
-        variables, {k: jnp.asarray(batch[k]) for k in ("coord", "feat", "grid_coord", "valid")}
-    )
+    args = (variables, {k: jnp.asarray(batch[k]) for k in ("coord", "feat", "grid_coord", "valid")})
+    # XLA's cheaper CPU passes: the compile is most of the file's time, and the numbers do not need them
+    out = jax.jit(lambda v, b: model.apply(v, point_of(b), b, train=False)).lower(*args).compile(FAST_COMPILE)(*args)
     return dict(state=state, predictor=predictor, coord=coord, feat=feat, data=data, centroid=centroid,
                 scale=scale, jax_out=jax.tree.map(np.asarray, out))
 

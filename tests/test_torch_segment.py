@@ -192,11 +192,16 @@ def test_convert_casts_params_only(case):
 
 
 def test_segmentor_raises_on_targets(case):
+    """With targets the segmentor computes its criteria's loss (``test_torch_segtrain.py`` holds it
+    against JAX); a criterion that is not ported raises when the model is built."""
     scene = case["scenes"]["body"]
     b = {k: torch.from_numpy(scene[k]) for k in KEYS}
     point = PointBatch(coord=b["coord"], feat=b["feat"], grid_coord=b["grid_coord"], valid=b["valid"], num_samples=1)
-    with pytest.raises(NotImplementedError):
-        case["predictor"].model(point, dict(segment=torch.zeros(SLOT, dtype=torch.int32)))
+    with torch.no_grad():
+        out = case["predictor"].model(point, dict(segment=torch.zeros(SLOT, dtype=torch.int32)))
+    assert out["loss"].dtype == torch.float32 and torch.isfinite(out["loss"])
+    with pytest.raises(NotImplementedError, match="FocalLoss"):
+        build_model(dict(CFG, criteria=[dict(type="FocalLoss")]))
 
 
 def _jax_server(case):

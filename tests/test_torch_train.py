@@ -1,13 +1,13 @@
 """The port's training path against the JAX package on the CPU.
 
-One training step of a small OffsetKeypoint PT-v3m1 (3 stages, channels
-<= 32, patch 32, 2 samples of 128 slots with pads, ``drop_path`` 0,
+One training step of a small OffsetKeypoint PT-v3m1 (2 stages, channels
+<= 24, patch 32, 2 samples of 128 slots with pads, ``drop_path`` 0,
 ``shuffle_orders`` False, ``clip_grad`` low enough to clip) with the same
 seeded weights and batch: the loss, every gradient (by ``convert.py``
 name), the parameters after one AdamW + cosine step and the BN running
 statistics.  The JAX value-and-grad is compiled once, in a module fixture.
 Tolerances: loss 1e-5 relative; gradients 2e-5 x max(1, max|g|) per tensor
-(f32 sums in another order through five blocks and their backward); running
+(f32 sums in another order through three blocks and their backward); running
 statistics 1e-6; the parameters after the clip and the optimizer step on
 JAX's gradients 1e-7 + 2.5e-7 relative (two f32 ulps: the update is
 rounded into the parameter in another order of operations).  Integer and
@@ -56,9 +56,9 @@ CFG = dict(
     num_keypoints=K,
     hidden_dim=32,
     backbone_conf=dict(
-        type="PT-v3m1", in_channels=4, stride=(2, 2), enc_depths=(1, 1, 1), enc_channels=(16, 24, 32),
-        enc_num_head=(1, 2, 2), enc_patch_size=(32, 32, 32), dec_depths=(1, 1), dec_channels=(16, 24),
-        dec_num_head=(1, 2), dec_patch_size=(32, 32), slot_divisors=(1, 2, 4), drop_path=0.0, shuffle_orders=False,
+        type="PT-v3m1", in_channels=4, stride=(2,), enc_depths=(1, 1), enc_channels=(16, 24),
+        enc_num_head=(1, 2), enc_patch_size=(32, 32), dec_depths=(1,), dec_channels=(16,),
+        dec_num_head=(1,), dec_patch_size=(32,), slot_divisors=(1, 2), drop_path=0.0, shuffle_orders=False,
     ),
 )
 OPT = dict(type="AdamW", lr=LR, weight_decay=WD)
@@ -133,7 +133,7 @@ def test_training_step_matches_jax(step):
 
     stats = convert_variables({"batch_stats": step["batch_stats"]})
     buffers = dict(model.named_buffers())
-    assert set(stats) == set(buffers) and len(stats) == 6  # stem + 2 pooling norms, mean and var
+    assert set(stats) == set(buffers) and len(stats) == 4  # stem + the pooling norm, mean and var
     for name, ref in stats.items():
         torch.testing.assert_close(buffers[name], ref, rtol=0, atol=1e-6, msg=lambda m, name=name: f"{name}: {m}")
 
@@ -345,6 +345,6 @@ def test_trainer_defaults_to_cuda(tmp_path):
     cfg.merge_from_dict({"save_path": str(tmp_path)})
     with pytest.raises(RuntimeError, match="cuda"):
         Trainer(cfg)
-    with pytest.raises(NotImplementedError, match="amp"):
-        cfg.merge_from_dict({"amp": "bf16"})
+    with pytest.raises(NotImplementedError, match="remat"):  # a training option not ported yet
+        cfg.merge_from_dict({"remat": True})
         Trainer(cfg, device="cpu")
