@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's offset-keypoint server and trainer, its pigseg
-server, its segmentation bench and its segmentation trainers on one NVIDIA
-GPU and hold its hand-written kernels against their plain versions.
+server, its segmentation bench, its segmentation trainers and the committed
+keypoint checkpoint (``exp/kp_r3``) served, evaluated and trained as its
+recipe on one NVIDIA GPU, and hold its hand-written kernels against their
+plain versions.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -75,10 +77,35 @@ Phases, each fatal on failure:
      its slot, the loss, every gradient and the running statistics (pigseg
      f32 within ``TRAIN_CPU_TOL``; amp bf16 on both sides within
      ``AMP_CPU_TOL``);
- 16. summary: the script's duration, the kernels line (per keypoint training
+ 16. r3 anchor: ``exp/kp_r3/model_params.ckpt`` read by the port's reader
+     into the r3 model (``configs/synthetic/offset-keypoint-r3.py``: k=3
+     stem, 7 input channels, patch 32, 5 Blocks) on the card and on the CPU;
+     its 8 val scenes (np.random seeded with the recipe's seed) through the
+     evaluator's ``keypoint_distances``: weighted < 6.0 and argmax < 11.0 mm,
+     the card within 0.05 mm of the CPU (an argmax pick may differ only on a
+     tie), every scene's outputs card against CPU within ``CPU_TOL``, each
+     forward launching B1 5 and B3 6 times and building 3 rulebooks;
+ 17. r3 serve: the r3 server with the checkpoint's weights at slot 4096
+     answers 1 warm-up and 3 POSTs of 6,000-point body-like clouds;
+ 18. r3 train: the recipe as written, its first epoch (32 steps of batch 4,
+     each launching B1 5, B2 5, B3 11 and B4 6 times and building 3
+     rulebooks), its evaluator and saver, a profiled step, one step at batch
+     1 card against CPU, and a trainer with ``weight=`` the checkpoint
+     (CheckpointLoader, then its evaluator before any step);
+ 19. r3 kernels: B1 and B2 at patch 32 at every request (N 4096-1024) and
+     step (N 16384-4096) level with an all-invalid patch, B3 and B4 at the
+     xCPE widths and at the 7-channel stem (padded to 8, Cout 32) on the
+     maps of r3 val batches, f32 and bf16 against the plain versions, all
+     bit for bit run to run;
+ 20. r3 times: each kernel at those levels beside its plain version, its
+     library call (SDPA; gather + matmul) and its bound, summed per r3
+     request and per r3 step;
+ 21. summary: the script's duration, the kernels line (per keypoint training
      step: launches, errors and times of the training levels; B1 and B3 also
      per bench forward in bf16; B1-B4 per pigseg step, ``pigseg_*``, and per
-     amp step, ``amp_*``), then ``{"ok": true, "device": ...}`` last.
+     amp step, ``amp_*``; per r3 step, ``r3_step_*``, and B1 and B3 per r3
+     request, ``r3_request_*``, with ``r3_max_abs_err``), then
+     ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -100,11 +127,13 @@ import torch.nn.functional as F
 from scipy.special import expit
 
 from pointcept_keypointdetection_tpu_torch import bench, serve
+from pointcept_keypointdetection_tpu_torch.convert import load_jax_checkpoint, load_weights
 from pointcept_keypointdetection_tpu_torch.datasets import build_dataset
 from pointcept_keypointdetection_tpu_torch.datasets.collate import collate
 from pointcept_keypointdetection_tpu_torch.datasets.dataloader import Dataloader
 from pointcept_keypointdetection_tpu_torch.datasets.synthetic import SyntheticKeypointDataset, body_cloud
 from pointcept_keypointdetection_tpu_torch.engines.common import build_point_batch, sample_to_device
+from pointcept_keypointdetection_tpu_torch.engines.hooks.keypoint_evaluator import keypoint_distances
 from pointcept_keypointdetection_tpu_torch.engines.train import Trainer
 from pointcept_keypointdetection_tpu_torch.inference.keypoint import (
     OffsetKeypointPredictor,
@@ -119,7 +148,9 @@ from pointcept_keypointdetection_tpu_torch.models import build_model, cast_param
 from pointcept_keypointdetection_tpu_torch.models.losses import build_criteria
 from pointcept_keypointdetection_tpu_torch.ops import sparse as sp
 from pointcept_keypointdetection_tpu_torch.ops.serialization import z_order_encode_np
+from pointcept_keypointdetection_tpu_torch.utils.checkpoint import load_checkpoint
 from pointcept_keypointdetection_tpu_torch.utils.config import Config
+from pointcept_keypointdetection_tpu_torch.utils.events import EventStorage
 
 CONFIG = "configs/my_dataset/offset_keypoint_ptv3.py"
 REQUESTS = 3
@@ -239,6 +270,11 @@ def card_generator(rng: np.random.Generator) -> torch.Generator:
 
 def card_normal(rng: np.random.Generator, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return torch.randn(shape, generator=card_generator(rng), device="cuda").to(dtype)
+
+
+def stem_convs(bb) -> int:
+    """B3 launches of the stem per forward: 1 where it is a sparse conv (k <= 3), 0 for the cell-packed k=5."""
+    return int(bb.get("stem_kernel", 5) <= 3)
 
 
 def attention_case(rng, n, heads, patch, dtype):
@@ -405,6 +441,7 @@ def phase_serve(predictor, clouds, backbone, check_reply):
     """POSTs through the server, one per cloud; returns the latencies and the launch counts of the run.
     ``check_reply(i, cloud, reply)`` raises on a wrong reply."""
     per_request = sum(backbone.enc_depths) + sum(backbone.dec_depths)
+    expect = (per_request, per_request + stem_convs(backbone), len(backbone.enc_depths))  # B1, B3, rulebooks
     server = serve.make_server(predictor, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -414,7 +451,6 @@ def phase_serve(predictor, clouds, backbone, check_reply):
         pa.launches = 0
         sc.launches = 0
         sc.rulebook_builds = 0
-        levels = len(backbone.enc_depths)  # one kernel map, so one rulebook, per level
         for i, cloud in enumerate(clouds):
             before = (pa.launches, sc.launches, sc.rulebook_builds)
             t0 = time.perf_counter()
@@ -426,9 +462,8 @@ def phase_serve(predictor, clouds, backbone, check_reply):
             print(f"request {i}: {cloud.shape[0]} points -> reply {reply.size} floats, "
                   f"{latencies[-1]:.1f} ms, launches B1 +{delta[0]} B3 +{delta[1]}, rulebooks built +{delta[2]}")
             check_reply(i, cloud, reply)
-            if delta != (per_request, per_request, levels):
-                raise AssertionError(f"request {i}: expected {per_request} launches of each kernel and {levels} "
-                                     f"rulebooks, got {delta}")
+            if delta != expect:  # one kernel map, so one rulebook, per level; the stem shares stage 0's
+                raise AssertionError(f"request {i}: expected launches of B1 and B3 and rulebooks {expect}, got {delta}")
         counts = {"patch_attention_fwd": pa.launches, "subm_conv_fwd": sc.launches}
     finally:
         server.shutdown()
@@ -660,13 +695,16 @@ def profile_step(trainer, run_step) -> dict:
 
 def counted_training(trainer, label: str, bb, check_step=None) -> dict:
     """``trainer.train()`` with every step's launches and rulebook builds counted and checked (each
-    kernel once per Block of the backbone dict ``bb``, B3 twice; one rulebook per kernel map), the
+    kernel once per Block of the backbone dict ``bb``, B3 twice, B3 and B4 once more for a sparse-conv
+    stem; one rulebook per kernel map), the
     counts set to 0 just before and read just after the run; its step times (host clock), per-step
     counts, whole-run counts and peak memory.  ``check_step(trainer)`` runs after each step."""
-    # every Block runs B1 and B3 forward, B2 and B4 backward, and B3 again for the conv's input gradient
+    # every Block runs B1 and B3 forward, B2 and B4 backward, and B3 again for the conv's input gradient;
+    # a sparse-conv stem runs B3 forward and B4, and no B3 for its input (the features need no gradient)
     blocks = sum(bb["enc_depths"]) + sum(bb["dec_depths"])  # 22 at full depth
-    per_step = {"patch_attention_fwd": blocks, "patch_attention_bwd": blocks, "subm_conv_fwd": 2 * blocks,
-                "subm_conv_dw": blocks}
+    stem = stem_convs(bb)
+    per_step = {"patch_attention_fwd": blocks, "patch_attention_bwd": blocks, "subm_conv_fwd": 2 * blocks + stem,
+                "subm_conv_dw": blocks + stem}
     levels = len(bb["enc_depths"])  # kernel maps per step: one rulebook each
     steps, step_ms = [], []
     run_step = trainer.run_step
@@ -872,38 +910,46 @@ def time_attention(rng, n, heads, patch, dtype, backward: bool):
     return row
 
 
-def time_conv(rng, idx, c, dtype, dw: bool):
-    """B3 (or with ``dw`` B4), its plain version and the gather + torch.matmul on the same inputs.
-    Each input set has its own copy of the map and that copy's rulebook, built before the timing
-    (a build reads the host, which a CUDA graph cannot hold); ``time_rulebook`` times the builds.
-    f32 runs as 3xTF32, so its operations bound is 3 TF32 products per f32 product at the TF32 rate."""
+def time_conv(rng, idx, c, dtype, dw: bool, cin=None):
+    """B3 (or with ``dw`` B4), its plain version and the gather + torch.matmul on the same inputs, Cout
+    ``c`` and Cin ``cin`` (default ``c``).  A Cin that is not a multiple of 8 (the stem's 7) reaches the
+    kernels zero-padded, as ``SubmConvFunction`` pads it; the plain version, the library call and the
+    bound take it as it is.  Each input set has its own copy of the map and that copy's rulebook, built
+    before the timing (a build reads the host, which a CUDA graph cannot hold); ``time_rulebook`` times
+    the builds.  f32 runs as 3xTF32, so its operations bound is 3 TF32 products per f32 product at the
+    TF32 rate."""
     n = idx.shape[0]
+    cin = cin or c
+    pad = -cin % sc.CHANNELS
     size = torch.tensor([], dtype=dtype).element_size()
     hits = int((idx < n).sum())
 
     def make():
-        feat, w = conv_case(rng, idx, c, dtype)
+        feat = card_normal(rng, (n, cin), dtype)
+        w = (card_normal(rng, (27, cin, c)) / np.sqrt(27 * cin)).to(dtype)
         g = card_normal(rng, (n, c), dtype)
         i = idx.clone()
-        fp = torch.cat([feat, feat.new_zeros(1, c)])
-        return feat, i, w, g, fp, i.long(), w.reshape(27 * c, c), sc.build_rulebook(i)
+        fp = torch.cat([feat, feat.new_zeros(1, cin)])
+        fk, wk = (F.pad(feat, (0, pad)), F.pad(w, (0, 0, 0, pad))) if pad else (feat, w)  # what the kernels read
+        return dict(f=feat, i=i, w=w, g=g, fp=fp, il=i.long(), w2=w.reshape(27 * cin, c), rb=sc.build_rulebook(i),
+                    fk=fk, wk=wk)
 
-    flops = 2.0 * hits * c * c
+    flops = 2.0 * hits * cin * c
     ops = dict(flops=flops)
     if dtype == torch.float32:
         ops = dict(flops=3 * flops, peak=PEAK_TF32, unit="3xTF32, 495 TFLOP/s")
     if not dw:
-        nbytes = (n * c * 2 + 27 * c * c) * size + idx.numel() * 4
-        return time_kernel("B3", input_sets(make, nbytes),
-                           lambda f, i, w, g, fp, il, w2, rb: sc.subm_conv(f, i, w, rb),
-                           lambda f, i, w, g, fp, il, w2, rb: sc.subm_conv_plain(f, i, w),
-                           lambda f, i, w, g, fp, il, w2, rb: torch.matmul(fp[il].reshape(n, 27 * c), w2),
+        nbytes = (n * cin + n * c + 27 * cin * c) * size + idx.numel() * 4
+        return time_kernel("B3", input_sets(lambda: (make(),), nbytes),
+                           lambda a: sc.subm_conv(a["fk"], a["i"], a["wk"], a["rb"]),
+                           lambda a: sc.subm_conv_plain(a["f"], a["i"], a["w"]),
+                           lambda a: torch.matmul(a["fp"][a["il"]].reshape(n, 27 * cin), a["w2"]),
                            nbytes, dtype=dtype, **ops)
-    nbytes = n * c * 2 * size + idx.numel() * 4 + 27 * c * c * 4
-    return time_kernel("B4", input_sets(make, nbytes),
-                       lambda f, i, w, g, fp, il, w2, rb: sc.subm_conv_dw(f, i, g, rb),
-                       lambda f, i, w, g, fp, il, w2, rb: sc.subm_conv_dw_plain(f, i, g),
-                       lambda f, i, w, g, fp, il, w2, rb: torch.matmul(fp[il].permute(1, 2, 0), g),
+    nbytes = (n * cin + n * c) * size + idx.numel() * 4 + 27 * cin * c * 4
+    return time_kernel("B4", input_sets(lambda: (make(),), nbytes),
+                       lambda a: sc.subm_conv_dw(a["fk"], a["i"], a["g"], a["rb"]),
+                       lambda a: sc.subm_conv_dw_plain(a["f"], a["i"], a["g"]),
+                       lambda a: torch.matmul(a["fp"][a["il"]].permute(1, 2, 0), a["g"]),
                        nbytes, dtype=dtype, **ops)
 
 
@@ -1383,7 +1429,8 @@ def phase_lovasz(n: int, classes: int) -> dict:
 
 
 def seg_shapes(bb, slot: int, batch: int):
-    """{(N, C, H, patch): Blocks per step} of a segmentation trainer's levels."""
+    """{(N, C, H, patch): Blocks per step} of the levels of a trainer (a segmentation recipe's, r3's) at
+    ``batch`` samples of ``slot``."""
     shapes = {}
     for n, c, heads, patch, depth in level_shapes(bb, slot):
         key = (n * batch, c, heads, patch)
@@ -1437,6 +1484,307 @@ def phase_seg_train_cpu(pig_cfg, scannet_cfg) -> dict:
     return worst
 
 
+# ---- the r3 slice: the committed keypoint checkpoint --------------------------------------------------
+
+R3_CONFIG = "configs/synthetic/offset-keypoint-r3.py"
+R3_CKPT = "exp/kp_r3/model_params.ckpt"
+R3_CLOUD_POINTS = 6000  # points per scene of the r3 recipe's data
+# the keypoint error over the 8 val scenes: tests/test_keypoint_checkpoint.py's bounds, and how far the card's
+# may lie from the CPU's on the same scenes (an argmax pick may differ only on a tie, as in phase 5)
+R3_WEIGHTED_MM, R3_ARGMAX_MM, R3_ANCHOR_MM = 6.0, 11.0, 0.05
+
+
+def r3_val_batches(cfg, batch_size: int = 1) -> list:
+    """The r3 recipe's val scenes at its slot, ``batch_size`` per batch.  GridSample (train mode) and the
+    slot subsample draw from the global np.random, so it is seeded first, with the recipe's seed."""
+    ds = build_dataset(dict(cfg.data.val))
+    np.random.seed(cfg.seed)
+    return [collate([ds[j] for j in range(i, min(i + batch_size, len(ds)))], cfg.slot_size, np.random)
+            for i in range(0, len(ds), batch_size)]
+
+
+def r3_model(cfg, device: str, state=None):
+    """The r3 model with the committed checkpoint's weights (the port's reader), in eval mode."""
+    model = build_model(dict(cfg.model))
+    model.load_state_dict(state if state is not None else load_jax_checkpoint(R3_CKPT), strict=True)
+    return model.to(device).eval()
+
+
+def check_stem(rng, idx, cin: int, cout: int, dtype) -> dict:
+    """The stem's conv as the path runs it: ``SubmConvFunction`` on features of ``cin`` (7) channels that
+    need no gradient, an f32 W cast inside, both zero-padded to 8 input channels: one B3 and, backward,
+    one B4 (no B3 for dfeat).  Its output and W's [27, 7, Cout] gradient against the unpadded plain
+    versions, and its bits run to run; returns the errors."""
+    n = idx.shape[0]
+    feat = card_normal(rng, (n, cin), dtype)
+    w = card_normal(rng, (27, cin, cout)) / np.sqrt(27 * cin)
+    g = card_normal(rng, (n, cout), dtype)
+    rb = sc.build_rulebook(idx)
+
+    def run():
+        wp = w.clone().requires_grad_()
+        before = (sc.launches, sc.dw_launches)
+        out = sc.SubmConvFunction.apply(feat, idx, wp, rb)
+        out.backward(g)
+        torch.cuda.synchronize()
+        if (sc.launches - before[0], sc.dw_launches - before[1]) != (1, 1):
+            raise AssertionError(f"the stem conv launched B3 {sc.launches - before[0]} and B4 "
+                                 f"{sc.dw_launches - before[1]} times, not once each")
+        return out, wp.grad
+
+    (out, dw), (out2, dw2) = run(), run()
+    if not (torch.equal(out, out2) and torch.equal(dw, dw2)):
+        raise AssertionError(f"stem conv N={n} {dtype}: two runs on one input differ")
+    if dw.shape != (27, cin, cout) or dw.dtype != torch.float32:
+        raise AssertionError(f"the stem's dW is {dw.dtype} {tuple(dw.shape)}, not float32 [27, {cin}, {cout}]")
+    label = f"N={n} Cin={cin} (padded to {cin + -cin % sc.CHANNELS}) Cout={cout} K=27 hits={int((idx < n).sum())}"
+    ref_dw = sc.subm_conv_dw_plain(feat, idx, g)
+    longest = int((idx < n).sum(0).max())
+    errs = {"subm_conv_fwd": check(f"B3 stem {label} {str(dtype)[6:]}", out,
+                                   sc.subm_conv_plain(feat, idx, w.to(dtype)), *TOL[dtype]),
+            "subm_conv_dw": check(f"B4 stem {label} longest sum {longest} {str(dtype)[6:]}", dw, ref_dw,
+                                  DW_TOL * max(1.0, longest / DW_SUM) * ref_dw.abs().max().item(), 0.0)}
+    print(f"stem conv {label} {str(dtype)[6:]}: one B3 and one B4 per call, two runs give equal bits")
+    return errs
+
+
+def phase_r3_kernels(cfg, request_maps: dict, step_maps: dict) -> dict:
+    """B1 and B2 at patch 32 at every r3 level of a request (batch 1: N 4096, 2048, 1024) and of a step
+    (batch 4: 16384, 8192, 4096), on inputs with an all-invalid patch; B3 and B4 at the xCPE widths and at
+    the 7-channel stem (Cout 32) on the kernel maps of r3 val batches; in f32 and bf16 against the plain
+    versions, all four bit for bit run to run.  Returns each kernel's largest f32 error over the step levels."""
+    rng = np.random.default_rng(10)
+    bb = cfg.model.backbone_conf
+    errors = dict.fromkeys(SOURCES, 0.0)
+    for batch, maps in ((1, request_maps), (cfg.batch_size, step_maps)):
+        for n, c, heads, patch in seg_shapes(bb, cfg.slot_size, batch):
+            idx = maps[n]
+            for dtype in (torch.float32, torch.bfloat16):
+                found = {"patch_attention_fwd": check_attention(rng, n, heads, patch, dtype),
+                         "patch_attention_bwd": check_attention_bwd(rng, n, heads, patch, dtype),
+                         "subm_conv_fwd": check_conv(rng, idx, c, dtype),
+                         "subm_conv_dw": check_conv_dw(rng, idx, c, dtype)}
+                check_attention_bits(rng, n, heads, patch, dtype)
+                check_conv_bits(rng, idx, c, dtype)
+                if dtype == torch.float32 and batch > 1:
+                    for name, err in found.items():
+                        errors[name] = max(errors[name], err)
+        n0 = cfg.slot_size * batch
+        for dtype in (torch.float32, torch.bfloat16):
+            found = check_stem(rng, maps[n0], bb.in_channels, bb.enc_channels[0], dtype)
+            if dtype == torch.float32 and batch > 1:
+                for name, err in found.items():
+                    errors[name] = max(errors[name], err)
+    return errors
+
+
+def r3_forward_counts(bb) -> dict:
+    blocks = sum(bb.enc_depths) + sum(bb.dec_depths)
+    return {"patch_attention_fwd": blocks, "patch_attention_bwd": 0, "subm_conv_fwd": blocks + stem_convs(bb),
+            "subm_conv_dw": 0}
+
+
+def phase_r3_anchor(cfg) -> dict:
+    """The committed checkpoint, read by the port's reader, on the card: the 8 val scenes (batch 1)
+    through the model and the evaluator's ``keypoint_distances``, weighted and argmax mm, on the card
+    and on the CPU; each card forward's launches (B1 once per Block, B3 once more for the stem) and
+    rulebooks (one per level, the stem sharing stage 0's); every scene's outputs, card against CPU.
+    Returns the card's anchor and the kernel maps of a val scene (a request's levels) and of a batch of 4
+    val scenes (a training step's)."""
+    t0 = time.perf_counter()
+    state = load_jax_checkpoint(R3_CKPT)
+    print(f"r3: {R3_CKPT} read by the port's reader (pure Python) in {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+          f"{len(state)} tensors, {sum(v.numel() for v in state.values())} values; epoch "
+          f"{load_checkpoint(R3_CKPT)['epoch']}")
+    models = {"cuda": r3_model(cfg, "cuda", state), "cpu": r3_model(cfg, "cpu", state)}
+    bb = cfg.model.backbone_conf
+    expect, levels = r3_forward_counts(bb), len(bb.enc_depths)
+    sums = {dev: {"weighted": 0.0, "argmax": 0.0} for dev in models}
+    worst, ties = 0.0, []
+    batches = r3_val_batches(cfg)
+    for i, b in enumerate(batches):
+        outs = {}
+        for dev, model in models.items():
+            set_launch_counts_to_zero()
+            with torch.no_grad():
+                out = model(build_point_batch(sample_to_device(b, dev), 1))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts, built = launch_counts(), sc.rulebook_builds
+                if counts != expect or built != levels:
+                    raise AssertionError(f"r3 scene {i}: expected launches {expect} and {levels} rulebooks, got "
+                                         f"{counts} and {built}")
+            outs[dev] = o = {k: v.float().cpu().numpy() for k, v in out.items()}
+            d = keypoint_distances(b["coord"], b["valid"], o["offset_pred"], expit(o["mask_logits"]),
+                                   b["keypoint_offset"], b["keypoint_mask"], b["scale"], 1, 0.5)
+            for m in sums[dev]:
+                sums[dev][m] = sums[dev][m] + d[m].sum(0)
+        v = b["valid"]
+        for key in ("offset_pred", "mask_logits"):
+            a, ref = outs["cuda"][key][v], outs["cpu"][key][v]
+            err = float(np.abs(a - ref).max())
+            rel = err / max(1.0, float(np.abs(ref).max()))
+            worst = max(worst, rel)
+            if not (np.isfinite(a).all() and rel <= CPU_TOL):
+                raise AssertionError(f"r3 scene {i}: card and CPU disagree on {key}: {err:.3e}")
+        logits, ref_logits = outs["cuda"]["mask_logits"][v], outs["cpu"]["mask_logits"][v]
+        tie = 2 * float(np.abs(logits - ref_logits).max())
+        card_pick, cpu_pick = expit(logits).argmax(0), expit(ref_logits).argmax(0)
+        for k in np.nonzero(card_pick != cpu_pick)[0]:
+            gap = abs(float(ref_logits[cpu_pick[k], k] - ref_logits[card_pick[k], k]))
+            ties.append((i, int(k), gap, tie))
+            if gap > tie:
+                raise AssertionError(f"r3 scene {i} keypoint {k}: argmax picks differ away from a tie ({gap} > {tie})")
+    mm = {dev: {m: float(np.mean(t / len(batches))) for m, t in d.items()} for dev, d in sums.items()}
+    print(f"r3 card vs cpu outputs over {len(batches)} val scenes (valid rows): worst max abs err / max(1, |cpu|) "
+          f"{worst:.3e}, tol {CPU_TOL:g}; argmax picks on near ties (scene, keypoint, logit gap, 2 x error): {ties}")
+    print(f"r3 anchor (exp/kp_r3, {len(batches)} val scenes, np.random seed {cfg.seed}): card weighted "
+          f"{mm['cuda']['weighted']:.4f} mm, argmax {mm['cuda']['argmax']:.4f} mm; CPU weighted "
+          f"{mm['cpu']['weighted']:.4f} mm, argmax {mm['cpu']['argmax']:.4f} mm; bounds < {R3_WEIGHTED_MM} and "
+          f"< {R3_ARGMAX_MM} mm, card within {R3_ANCHOR_MM} mm of the CPU {stamp()}")
+    card, cpu = mm["cuda"], mm["cpu"]
+    if not (card["weighted"] < R3_WEIGHTED_MM and card["argmax"] < R3_ARGMAX_MM):
+        raise AssertionError(f"the card's r3 anchor is out of bounds: {card}")
+    if abs(card["weighted"] - cpu["weighted"]) >= R3_ANCHOR_MM or (
+            abs(card["argmax"] - cpu["argmax"]) >= R3_ANCHOR_MM and not ties):
+        raise AssertionError(f"the card's r3 anchor {card} is not the CPU's {cpu}")
+    maps = {}
+    for label, b in (("r3 request", batches[0]), ("r3 step", r3_val_batches(cfg, cfg.batch_size)[0])):
+        with torch.no_grad():
+            maps[label] = capture_maps(models["cuda"], lambda b=b: models["cuda"](
+                build_point_batch(sample_to_device(b, "cuda"), b["num_samples"])), label)
+    return dict(anchor=card, request_maps=maps["r3 request"], step_maps=maps["r3 step"])
+
+
+def phase_r3_serve(cfg) -> list:
+    """The r3 server (``--weight exp/kp_r3/model_params.ckpt --slot-size 4096``): 1 warm-up and 3 POSTs of
+    body-like clouds of the r3 data's size through HTTP.  The server estimates normals from the cloud,
+    so these are not the val scenes, and no mm is gated on them."""
+    predictor = serve.build_predictor("offset_keypoint", cfg, load_weights(R3_CKPT), cfg.slot_size, "cuda")
+    rng = np.random.default_rng(11)
+    clouds = [request_cloud(rng, R3_CLOUD_POINTS) for _ in range(REQUESTS + 1)]
+    warm = clouds.pop()
+    predictor.predict(warm[:, :3], warm[:, 3:])
+    latencies, _ = phase_serve(predictor, clouds, cfg.model.backbone_conf, check_keypoints)
+    print(f"r3 request latency (host clock, POST to reply, slot {cfg.slot_size}, {REQUESTS} requests of "
+          f"{R3_CLOUD_POINTS} points x 7): median {statistics.median(latencies):.2f} ms, each "
+          f"{[round(x, 2) for x in latencies]} {stamp()}")
+    return latencies
+
+
+def r3_train_config(save_path: str, **options):
+    cfg = Config.fromfile(R3_CONFIG)
+    cfg.merge_from_dict(dict(save_path=save_path, **options))
+    return cfg
+
+
+def hook(trainer, name: str):
+    return next(h for h in trainer.hooks if type(h).__name__ == name)
+
+
+def recorded_evaluation(trainer) -> dict:
+    """A dict that each run of the trainer's OffsetKeypointEvaluator fills with its weighted and argmax mm
+    (the trainer clears its histories after every epoch)."""
+    evaluator, seen = hook(trainer, "OffsetKeypointEvaluator"), {}
+    run = evaluator.after_epoch
+
+    def recorded():
+        run()
+        seen.update({m: trainer.storage.history(f"val/keypoint_dist_{m}").latest for m in ("weighted", "argmax")})
+
+    evaluator.after_epoch = recorded
+    return seen
+
+
+def phase_r3_train(cfg) -> dict:
+    """The r3 recipe's trainer as written (batch 4, slot 4096, 128 scenes of 6,000 points, AdamW 1.5e-3 under
+    cosine over its 64 epochs): its first epoch, 32 steps, each step's launches counted (B1 5, B2 5, B3 11,
+    B4 6, 3 rulebooks), then its evaluator and saver; one step under torch.profiler; one step at batch 1,
+    card against CPU; then a trainer with ``weight=`` the checkpoint, whose CheckpointLoader loads it and
+    whose evaluator runs before any step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(r3_train_config(tmp), device="cuda")
+        epoch_mm = recorded_evaluation(trainer)
+        total = len(trainer.train_loader) * trainer.max_epoch
+        trainer.max_epoch = 1  # the recipe's first epoch; the schedule keeps the whole run's length
+        print(f"r3 train: {len(trainer.train_loader)} steps of batch {cfg.batch_size} per epoch, slot {cfg.slot_size}, "
+              f"cosine over {total} steps (lr {trainer.lr_schedule(0):.4e} at step 0), "
+              f"{sum(p.numel() for p in trainer.model.parameters())} parameters")
+        run = counted_training(trainer, "r3 train", cfg.model.backbone_conf)
+        if len(run["steps"]) != len(trainer.train_loader):
+            raise AssertionError(f"r3 train: ran {len(run['steps'])} steps, not the epoch's {len(trainer.train_loader)}")
+        if sorted(epoch_mm) != ["argmax", "weighted"] or not all(np.isfinite(x) for x in epoch_mm.values()):
+            raise AssertionError(f"r3 train: the evaluator gave no finite mm error: {epoch_mm}")
+        print(f"r3 train: OffsetKeypointEvaluator after the first epoch: weighted {epoch_mm['weighted']:.2f} mm, "
+              f"argmax {epoch_mm['argmax']:.2f} mm {stamp()}")
+        run["profile"] = profile_step(trainer, trainer.run_step)
+        del trainer
+        torch.cuda.empty_cache()
+
+        model_cfg = dict(cfg.model)
+        model_cfg["backbone_conf"] = dict(cfg.model.backbone_conf, drop_path=0.0, shuffle_orders=False)
+        np.random.seed(5)
+        run["cpu"] = compare_step("r3", model_cfg, collate([build_dataset(dict(cfg.data.train))[0]], cfg.slot_size,
+                                                            np.random), torch.float32, TRAIN_CPU_TOL)
+
+        trainer = Trainer(r3_train_config(os.path.join(tmp, "weight"), weight=R3_CKPT), device="cuda")
+        trainer.storage = EventStorage()
+        loaded_mm = recorded_evaluation(trainer)
+        hook(trainer, "CheckpointLoader").before_train()
+        state = load_jax_checkpoint(R3_CKPT)
+        if not all(torch.equal(v.cpu(), state[k]) for k, v in trainer.model.state_dict().items()):
+            raise AssertionError("r3 train: CheckpointLoader did not load the checkpoint's weights")
+        hook(trainer, "OffsetKeypointEvaluator").after_epoch()
+        print(f"r3 train with weight={R3_CKPT}: CheckpointLoader loaded it; its OffsetKeypointEvaluator before any "
+              f"step (the trainer's val loader, batch {cfg.batch_size}): weighted {loaded_mm['weighted']:.4f} mm, "
+              f"argmax {loaded_mm['argmax']:.4f} mm {stamp()}")
+        if not (loaded_mm["weighted"] < R3_WEIGHTED_MM and loaded_mm["argmax"] < R3_ARGMAX_MM):
+            raise AssertionError(f"r3 train: the loaded checkpoint evaluates out of bounds: {loaded_mm}")
+        del trainer
+    return run
+
+
+def phase_r3_times(cfg, request_maps: dict, step_maps: dict, request_counts: dict, step_counts: dict) -> dict:
+    """Each kernel at the r3 levels beside its plain version, its library call and its bound, summed per
+    r3 request (B1, B3; batch 1) and per r3 training step (B1-B4; batch 4), the stem's B3 (and B4) at
+    Cin 7 among them; the sums' launches are checked against the counts of the runs."""
+    rng = np.random.default_rng(12)
+    bb = cfg.model.backbone_conf
+    c0, cin, n0 = bb.enc_channels[0], bb.in_channels, cfg.slot_size
+    per_block = {"patch_attention_fwd": 1, "patch_attention_bwd": 1, "subm_conv_fwd": 2, "subm_conv_dw": 1}
+    sums = {"request": {}, "step": {}}
+    for key, batch, maps in (("request", 1, request_maps), ("step", cfg.batch_size, step_maps)):
+        totals, launches = sums[key], {}
+        for (n, c, heads, patch), depth in seg_shapes(bb, n0, batch).items():
+            print(f"r3 {key} level N={n} C={c} H={heads} patch={patch} f32 (x{depth} Blocks):")
+            rows = {"patch_attention_fwd": time_attention(rng, n, heads, patch, torch.float32, backward=False),
+                    "subm_conv_fwd": time_conv(rng, maps[n], c, torch.float32, dw=False)}
+            if key == "step":
+                rows["patch_attention_bwd"] = time_attention(rng, n, heads, patch, torch.float32, backward=True)
+                rows["subm_conv_dw"] = time_conv(rng, maps[n], c, torch.float32, dw=True)
+            for name, row in rows.items():
+                k = (per_block[name] if key == "step" else 1) * depth
+                add_row(totals, name, row, k)
+                launches[name] = launches.get(name, 0) + k
+        print(f"r3 {key} stem N={n0 * batch} Cin={cin} Cout={c0} f32 (x1):")
+        stem = {"subm_conv_fwd": time_conv(rng, maps[n0 * batch], c0, torch.float32, dw=False, cin=cin)}
+        if key == "step":
+            stem["subm_conv_dw"] = time_conv(rng, maps[n0 * batch], c0, torch.float32, dw=True, cin=cin)
+        for name, row in stem.items():
+            add_row(totals, name, row, 1)
+            launches[name] += 1
+        counts = request_counts if key == "request" else step_counts
+        for name, t in totals.items():
+            if launches[name] != counts[name]:
+                raise AssertionError(f"r3 {key}: {name} timed for {launches[name]} launches, the run made "
+                                     f"{counts[name]}")
+            t["launches"] = launches[name]
+            print(f"{name} per r3 {key} (f32, sum over its {launches[name]} launches): kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms {stamp()}")
+    return sums
+
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -1479,6 +1827,13 @@ def main() -> None:
                                            dtype, step)
             seg[key] = (cfg, step, sums, errs)
         phase_seg_train_cpu(seg["pigseg"][0], seg["amp"][0])
+    r3_cfg = Config.fromfile(R3_CONFIG)
+    r3 = phase_r3_anchor(r3_cfg)
+    r3_latencies = phase_r3_serve(r3_cfg)
+    r3_train = phase_r3_train(r3_cfg)
+    r3_errors = phase_r3_kernels(r3_cfg, r3["request_maps"], r3["step_maps"])
+    r3_sums = phase_r3_times(r3_cfg, r3["request_maps"], r3["step_maps"], r3_forward_counts(r3_cfg.model.backbone_conf),
+                             r3_train["steps"][-1])
     for row in kernels:  # B1-B4 per step of the pigseg trainer (f32) and the ScanNet recipe's (amp, bf16)
         for key, (_, step, sums, errs) in seg.items():
             t = sums[row["name"]]
@@ -1486,6 +1841,16 @@ def main() -> None:
                         f"{key}_ms": t["ms"], f"{key}_plain_ms": t["plain_ms"], f"{key}_library_ms": t["library_ms"],
                         f"{key}_bound_ms": t["bound_ms"],
                         f"{key}_bound_by": "operations" if t["t_ops"] >= t["t_bytes"] else "bytes"})
+    for row in kernels:  # B1-B4 per r3 training step, B1 and B3 per r3 request (f32)
+        for key, t in ((key, r3_sums[key].get(row["name"])) for key in ("step", "request")):
+            if t is not None:
+                row.update({f"r3_{key}_launches": t["launches"], f"r3_{key}_ms": t["ms"],
+                            f"r3_{key}_plain_ms": t["plain_ms"], f"r3_{key}_library_ms": t["library_ms"],
+                            f"r3_{key}_bound_ms": t["bound_ms"],
+                            f"r3_{key}_bound_by": "operations" if t["t_ops"] >= t["t_bytes"] else "bytes"})
+        row["r3_max_abs_err"] = r3_errors[row["name"]]
+    print(f"r3: anchor {r3['anchor']} mm on the card; request median {statistics.median(r3_latencies):.2f} ms; "
+          f"step median {statistics.median(r3_train['step_ms'][1:]):.2f} ms {stamp()}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s {stamp()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

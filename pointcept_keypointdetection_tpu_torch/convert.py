@@ -16,6 +16,11 @@ arrays (what ``flax`` holds, or a checkpoint reader returns).  The rules:
   in ``DefaultSegmentorV2``, whose ``seg_head`` keeps its name), the head's ``Dense_{i}`` is
   ``head.{2i}``, the xCPE's ``Dense_0`` / ``LayerNorm_0`` are ``linear`` /
   ``norm``, the MLP's ``Dense_0`` / ``Dense_1`` are ``fc1`` / ``fc2``.
+
+``load_jax_checkpoint`` reads a flax-msgpack checkpoint of the JAX package
+(``utils/checkpoint.py``, no ``msgpack`` package needed) and converts its
+``params`` and ``batch_stats``; ``load_weights`` takes that, a checkpoint of
+the port's trainer or a bare ``state_dict``, and tells them apart by content.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from .utils.checkpoint import CheckpointError, load_checkpoint
 
 _SCAN = re.compile(r"^(enc|dec)(\d+)_blocks$")
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
@@ -41,7 +48,8 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tupl
         if isinstance(value, Mapping):
             yield from _flatten(value, prefix + (str(key),))
         else:
-            yield prefix + (str(key),), np.asarray(value)
+            # a bfloat16 leaf reads as a torch tensor (utils/checkpoint.py); the state_dict is f32
+            yield prefix + (str(key),), value.float().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
 
 
 def _unstack(path: Tuple[str, ...], value: np.ndarray):
@@ -81,3 +89,30 @@ def convert_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                 name = ".".join(_rename(split_path))
                 state[name] = torch.from_numpy(np.ascontiguousarray(leaf, dtype=np.float32))
     return state
+
+
+def load_jax_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` of a JAX checkpoint (``*.ckpt``, flax msgpack): its ``params``
+    and ``batch_stats``; other top-level entries (``epoch``, ``opt_state``, ...) are ignored."""
+    tree = load_checkpoint(path)
+    if not isinstance(tree, Mapping) or not isinstance(tree.get("params"), Mapping):
+        raise CheckpointError(f"{path}: a flax checkpoint with no params map")
+    return convert_variables({"params": tree["params"], "batch_stats": tree.get("batch_stats") or {}})
+
+
+def load_weights(path: str) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` for the port's model from ``path``, which holds one of: a JAX
+    checkpoint (flax msgpack: ``tools/serve.py --weight``, ``CheckpointLoader``'s ``weight``),
+    a checkpoint of the port's trainer (``torch.save`` of a dict whose ``model`` entry is the
+    state_dict) or a bare state_dict saved with ``torch.save``.  Told apart by content, not by
+    the file's name: ``torch.save`` writes a zip archive, flax one msgpack map."""
+    with open(path, "rb") as f:
+        zipped = f.read(4) == b"PK\x03\x04"
+    if not zipped:
+        return load_jax_checkpoint(path)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(payload, Mapping) and isinstance(payload.get("model"), Mapping):
+        payload = payload["model"]  # the port trainer's checkpoint (``CheckpointSaver``)
+    if not (isinstance(payload, Mapping) and all(isinstance(v, torch.Tensor) for v in payload.values())):
+        raise ValueError(f"{path}: neither a state_dict nor a checkpoint with a 'model' state_dict")
+    return dict(payload)

@@ -82,5 +82,6 @@ class OffsetKeypointEvaluator(HookBase):
         logger.info(f"Val result: mean keypoint distance {mean_dist:.2f} ({self.aggregate})")
         trainer.storage.put_scalar("val/keypoint_dist", mean_dist)
         trainer.storage.put_scalar("val/keypoint_dist_weighted", means["weighted"])
+        trainer.storage.put_scalar("val/keypoint_dist_argmax", means["argmax"])
         trainer.comm_info["current_metric_value"] = -mean_dist
         trainer.comm_info["current_metric_name"] = "neg_keypoint_dist"

@@ -6,8 +6,8 @@ of ``epoch``, ``step``, ``model`` (the state_dict), ``optimizer`` (its
 state_dict), ``generator`` (the training generator's state) and
 ``best_metric_value``, at ``<save_path>/model/model_last.pth`` (written to a
 temporary file, then renamed), copied to ``model_best.pth`` when the
-evaluator's metric improves.  The JAX package's flax-msgpack ``.ckpt`` files
-are not read here.
+evaluator's metric improves.  ``CheckpointLoader`` also starts from the
+weights of a JAX checkpoint (flax msgpack ``.ckpt``), as JAX's loader does.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import time
 
 import torch
 
+from ...convert import load_weights
 from ...utils.logger import get_root_logger
 from . import HOOKS, HookBase
 
@@ -131,7 +132,9 @@ class CheckpointSaver(HookBase):
 class CheckpointLoader(HookBase):
     """Resume (``resume=True``: model, optimizer, step, epoch, generator and
     best metric from model_last.pth) or start from the weights of
-    ``weight`` (a checkpoint of this format)."""
+    ``weight``: a checkpoint of this format, a bare state_dict, or a JAX
+    checkpoint, whose params and batch statistics are loaded as JAX's
+    ``CheckpointLoader.before_train`` loads them (``convert.load_weights``)."""
 
     def __init__(self, strict=True):
         self.strict = strict
@@ -145,13 +148,15 @@ class CheckpointLoader(HookBase):
             logger.info("No weight found, training from scratch")
             return
         logger.info(f"Loading checkpoint: {path}")
+        if not resume:
+            trainer.model.load_state_dict(load_weights(path), strict=self.strict)
+            return
         # weights_only: the payload is tensors, numbers and plain containers
         payload = torch.load(path, map_location=trainer.device, weights_only=True)
         trainer.model.load_state_dict(payload["model"], strict=self.strict)
-        if resume:
-            trainer.optimizer.load_state_dict(payload["optimizer"])
-            trainer.generator.set_state(payload["generator"].cpu())
-            trainer.step = int(payload["step"])
-            trainer.start_epoch = int(payload["epoch"])
-            trainer.best_metric_value = float(payload["best_metric_value"])
-            logger.info(f"Resuming training from epoch {trainer.start_epoch}")
+        trainer.optimizer.load_state_dict(payload["optimizer"])
+        trainer.generator.set_state(payload["generator"].cpu())
+        trainer.step = int(payload["step"])
+        trainer.start_epoch = int(payload["epoch"])
+        trainer.best_metric_value = float(payload["best_metric_value"])
+        logger.info(f"Resuming training from epoch {trainer.start_epoch}")

@@ -26,7 +26,10 @@ tensor ``subm_conv_dw_plain``.
 B3, dfeat is B3 again with the mirrored weight flip(W, 0)^T over the same
 map and rulebook (for a centered cube in ``itertools.product`` order offset
 d's opposite is K-1-d, so map[i][d] = j exactly when map[j][K-1-d] = i), and
-dW is B4.
+dW is B4.  The kernels read rows of 16 bytes, so a Cin that is not a multiple
+of 8 (the k=3 stem's 7 input channels) is zero-padded up to one, in the
+features and in W, once per call on either device; each padded product is
+0 * 0, and dfeat and dW are cut back to Cin.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ rulebook_builds = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64  # rows of a rulebook tile: B3's output rows per block
+CHANNELS = 8  # the kernels take channels in multiples of this (16-byte rows of f32 and bf16 alike)
 MAX_OFFSETS = 31  # offsets a tile's hit mask (int32) can hold
 BLOCKS_PER_SM = 4  # blocks in flight per SM that the offset and row splits aim for
 DW_MIN_HITS = 256  # B4: hit pairs a row split holds at least (eight of the kernel's 32-pair steps)
@@ -166,14 +170,14 @@ def _check(feat: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> None:
 
 
 def _checked_rulebook(name: str, idx: torch.Tensor, rulebook: Optional[Rulebook], *tensors: torch.Tensor) -> Rulebook:
-    """What the kernels take: contiguous 16-byte aligned rows of a multiple of 8 channels, at most
+    """What the kernels take: contiguous 16-byte aligned rows of a multiple of CHANNELS channels, at most
     MAX_OFFSETS offsets.  Returns ``rulebook``, or the map's own if none is given."""
     if tensors[0].device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {tensors[0].device}")
     if not (idx.is_contiguous() and all(t.is_contiguous() for t in tensors)):
         raise ValueError(f"the CUDA kernel {name} takes contiguous tensors")
-    if any(t.shape[-1] % 8 or t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"the CUDA kernel {name} takes channels in multiples of 8 on 16-byte aligned rows")
+    if any(t.shape[-1] % CHANNELS or t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the CUDA kernel {name} takes channels in multiples of {CHANNELS} on 16-byte aligned rows")
     if rulebook is None:
         return build_rulebook(idx)
     if rulebook.perm.shape[0] != idx.shape[0] or rulebook.nbr.shape[0] != idx.shape[1]:
@@ -279,17 +283,24 @@ class SubmConvFunction(torch.autograd.Function):
     def forward(ctx, feat, idx, weight, rulebook=None):
         if rulebook is None and feat.device.type == "cuda":
             rulebook = build_rulebook(idx)
-        ctx.save_for_backward(feat, idx, weight)
-        ctx.rulebook = rulebook
-        return subm_conv(feat, idx, weight.to(feat.dtype), rulebook)
+        cin = feat.shape[1]
+        w = weight.to(feat.dtype)
+        pad = -cin % CHANNELS
+        if pad:  # zero channels: each adds 0 * 0 to every product
+            feat = torch.nn.functional.pad(feat, (0, pad))
+            w = torch.nn.functional.pad(w, (0, 0, 0, pad))
+        ctx.save_for_backward(feat, idx, w)
+        ctx.rulebook, ctx.cin, ctx.weight_dtype = rulebook, cin, weight.dtype
+        return subm_conv(feat, idx, w, rulebook)
 
     @staticmethod
     def backward(ctx, grad):
-        feat, idx, weight = ctx.saved_tensors
-        rb = ctx.rulebook
+        feat, idx, w = ctx.saved_tensors
+        rb, cin = ctx.rulebook, ctx.cin
         grad = grad.contiguous()
-        dfeat = None
+        dfeat = dweight = None
         if ctx.needs_input_grad[0]:
-            dfeat = subm_conv(grad, idx, mirrored_weight(weight.to(grad.dtype)), rb)
-        dweight = subm_conv_dw(feat, idx, grad, rb).to(weight.dtype) if ctx.needs_input_grad[2] else None
+            dfeat = subm_conv(grad, idx, mirrored_weight(w.to(grad.dtype)), rb)[:, :cin]
+        if ctx.needs_input_grad[2]:
+            dweight = subm_conv_dw(feat, idx, grad, rb)[:, :cin].contiguous().to(ctx.weight_dtype)
         return dfeat, None, dweight, None

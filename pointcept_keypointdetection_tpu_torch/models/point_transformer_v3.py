@@ -2,9 +2,11 @@
 
 Counterpart of ``pointcept_keypointdetection_tpu/models/
 point_transformer_v3.py:439-721`` for the options the repo's PTv3 configs
-take: ``kmap_mode="direct"``, a k=5 cell-packed stem (the ``stem_kernel > 3``
-branch, `:509-532`) with a direct k=3 map for the stage-0 xCPE, a fresh k=3
-map per pooled stage that the decoder reuses (`:603-611`, `:689`),
+take: ``kmap_mode="direct"``; a k=5 cell-packed stem (the ``stem_kernel > 3``
+branch, `:509-532`) with a direct k=3 map for the stage-0 xCPE, or a k=3 stem
+(`:533-543`, `:554-555`) as a sparse conv, without bias, over that same k=3
+map and its rulebook (a k=1 stem over a map of its own); a fresh k=3 map per
+pooled stage that the decoder reuses (`:603-611`, `:689`),
 SerializedPooling / SerializedUnpooling, and per-block order cycling
 (``order_index % 4``).  flax ``nn.gelu`` is the tanh approximation, so is
 this one.  Module names follow the flax parameter tree, so ``convert.py``
@@ -25,7 +27,8 @@ take their weight cast to the features' dtype, accumulate in f32 and cast
 their output; patch attention computes in f32 and writes the features' dtype.
 
 Not ported (raise): enc_mode, PDNorm, LoRA, RPE, the bottleneck and
-large-kernel xCPE, chain kernel maps, the k=3 stem and the cell-select stem.
+large-kernel xCPE, chain kernel maps and the cell-select stem.  An even stem
+size raises, as JAX's ``SparseConvSpec.cube`` does.
 """
 
 from __future__ import annotations
@@ -241,8 +244,8 @@ class PointTransformerV3(nn.Module):
                 raise TypeError(f"PT-v3m1: unknown option {key!r}")
             if value != _UNPORTED_DEFAULTS[key]:
                 raise NotImplementedError(f"PT-v3m1: {key}={value!r} is not ported yet")
-        if stem_kernel <= 3:
-            raise NotImplementedError("PT-v3m1: only the cell-packed stem (stem_kernel > 3) is ported")
+        if stem_kernel < 1 or stem_kernel % 2 == 0:
+            raise ValueError(f"PT-v3m1: stem_kernel must be odd and positive, got {stem_kernel}")
         self.order = tuple(order)
         self.stride = tuple(stride)
         self.enc_depths = tuple(enc_depths)
@@ -312,11 +315,11 @@ class PointTransformerV3(nn.Module):
             self._stem_packed = (key, cell_packed_weight(w, self.stem_shift, spec))
         return self._stem_packed[1]
 
-    def _kernel_map(self, point: PointBatch, shuffled: bool) -> KernelMap:
+    def _kernel_map(self, point: PointBatch, shuffled: bool, kernel_size: int = 3) -> KernelMap:
         kd = self.kmap_depth
         batch = point.batch
         index = build_voxel_index(point.grid_coord, batch, point.valid, kd, self._reuse_perm(point, shuffled))
-        return build_kernel_map(index, point.grid_coord, batch, point.valid, SparseConvSpec.cube(3), kd)
+        return build_kernel_map(index, point.grid_coord, batch, point.valid, SparseConvSpec.cube(kernel_size), kd)
 
     def forward(self, point: PointBatch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Features of the last decoder level.  ``generator`` (a CPU
@@ -331,11 +334,15 @@ class PointTransformerV3(nn.Module):
         shuffle_gen = generator if shuffled else None
         point = point.serialize(orders=self.order, depth=_DEPTH, generator=shuffle_gen)
 
-        # ---- embedding: k=5 stem on the coarse cells + BN + GELU ----------
-        parent = build_parent_index(point.grid_coord, point.batch, point.valid, self.stem_shift,
-                                    self.kmap_depth, precomputed_perm=self._reuse_perm(point, shuffled))
+        # ---- embedding: stem conv + BN + GELU -------------------------------
         kmap = self._kernel_map(point, shuffled)  # the stage-0 xCPE map
-        feat = cell_packed_apply(point.feat, parent, point.valid, self._stem_packed_weight())
+        if self.stem_kernel > 3:  # k=5: on the coarse cells
+            parent = build_parent_index(point.grid_coord, point.batch, point.valid, self.stem_shift,
+                                        self.kmap_depth, precomputed_perm=self._reuse_perm(point, shuffled))
+            feat = cell_packed_apply(point.feat, parent, point.valid, self._stem_packed_weight())
+        else:  # k=3 walks the xCPE's map and rulebook (JAX: kmap_cpe0 = kmap_stem)
+            kmap_stem = kmap if self.stem_kernel == 3 else self._kernel_map(point, shuffled, self.stem_kernel)
+            feat = sparse_conv(point.feat, kmap_stem, self.stem_weight)
         x = point.replace(feat=gelu(self.stem_norm(feat, point.valid)))
 
         # ---- encoder ------------------------------------------------------

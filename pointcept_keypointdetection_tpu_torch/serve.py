@@ -14,9 +14,12 @@ Usage:
   python -m pointcept_keypointdetection_tpu_torch.serve --task pigseg \
       --config-file configs/pigseg/semseg-ptv3-v1m1-0-base.py --slot-size 32768 [--device cuda]
 
-Without ``--weight`` (a ``state_dict`` saved with ``torch.save``, e.g. from
-``convert.py``) the weights are seeded (seed 0): the full-width config has no
-trained checkpoint.
+``--weight`` takes a JAX checkpoint (flax msgpack, as ``tools/serve.py``
+does, e.g. ``exp/kp_r3/model_params.ckpt`` with
+``configs/synthetic/offset-keypoint-r3.py`` and ``--slot-size 4096``), a
+checkpoint of the port's trainer (``model_*.pth``) or a bare ``state_dict``
+saved with ``torch.save`` (``convert.load_weights`` tells them apart by
+content).  Without it the weights are seeded (seed 0).
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ from typing import Optional, Union
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
-import torch
 
+from .convert import load_weights
 from .inference.keypoint import OffsetKeypointPredictor
 from .inference.segment import SegmentPredictor
 from .utils.config import Config
@@ -98,7 +101,8 @@ def main(argv: Optional[list] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--task", required=True, choices=TASKS)
     parser.add_argument("--config-file", required=True)
-    parser.add_argument("--weight", default=None, help="a state_dict saved with torch.save")
+    parser.add_argument("--weight", default=None,
+                        help="a JAX checkpoint (flax msgpack), a port trainer's checkpoint or a state_dict")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--cols", type=int, default=7)
@@ -107,7 +111,7 @@ def main(argv: Optional[list] = None) -> None:
     args = parser.parse_args(argv)
 
     cfg = Config.fromfile(args.config_file)
-    state_dict = torch.load(args.weight, map_location="cpu", weights_only=True) if args.weight else None
+    state_dict = load_weights(args.weight) if args.weight else None
     predictor = build_predictor(args.task, cfg, state_dict, args.slot_size, args.device)
     server = make_server(predictor, args.host, args.port, args.cols)
     print(f"serving {args.task} on {args.host}:{args.port} (POST /predict, raw float32 Nx{args.cols})")

@@ -181,12 +181,14 @@ def _attention_backward_by_tiles(qkv, valid, out32, lse, grad, patch, scale, bf1
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16"])
-@pytest.mark.parametrize("patch", [128, 256])
+@pytest.mark.parametrize("patch", [32, 128, 256])
 def test_attention_tile_walk_matches_plain_and_pallas(patch, mode):
     """B1's and B2's traversal (64-row tiles, base-2 online softmax, 3xTF32 or bf16 operands, P and
     dS as bf16 high and low parts, delta once per row) against the plain versions on every row, an all-invalid
     patch included, and in f32 against the Pallas kernels (interpret mode) on valid rows, at 2e-4.
-    Patch 128 is the trainer's (two 64-row tiles; B2 in one pass on the card); 256 streams four and
+    Patch 32 is the r3 recipe's: one tile holds 32 keys, and the 32 rows past the patch count as
+    missing keys (P = 0), not as -1e9 ones (B2 in one pass on the card, two of a block's eight warps
+    busy).  Patch 128 is the trainer's (two 64-row tiles; B2 in one pass on the card); 256 streams four and
     takes B2's two-kernel shape on the card, whose sums the walk shares (dq per run of 64 keys, dk
     and dv per tile of 64 queries; delta there in halves, not quarters).  In
     bf16 the inputs are bf16 and the results, rounded to bf16 as the kernels round them, are held at
