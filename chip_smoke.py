@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's offset-keypoint server and trainer, its pigseg
-server, its segmentation bench, its segmentation trainers and the committed
+server, its segmentation bench, its segmentation trainers, the committed
 keypoint checkpoint (``exp/kp_r3``) served, evaluated and trained as its
-recipe on one NVIDIA GPU, and hold its hand-written kernels against their
-plain versions.
+recipe, and SpUNet-v1m1 (the committed ``exp/semseg_r3`` evaluated and run
+through the tester, the ScanNet SpUNet recipe and the semseg-spunet-r3
+recipe trained) on one NVIDIA GPU, and hold its hand-written kernels against
+their plain versions.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -100,12 +102,43 @@ Phases, each fatal on failure:
  20. r3 times: each kernel at those levels beside its plain version, its
      library call (SDPA; gather + matmul) and its bound, summed per r3
      request and per r3 step;
- 21. summary: the script's duration, the kernels line (per keypoint training
+ 21. semseg_r3 anchor: ``exp/semseg_r3/model_params.ckpt`` read by the port's
+     reader into its DefaultSegmentor over SpUNet-v1m1 (k=3 stem, base 24)
+     on the card and on the CPU; its 8 val scenes (np.random seeded 123):
+     each card forward launching B3 once per conv (33) and building 5
+     rulebooks, logits card against CPU within ``CPU_TOL``, labels apart
+     only on a tie, the mIoU above 0.95 and within 0.005 of the CPU's;
+ 22. semseg_r3 tester: the port's ``test`` CLI over
+     ``configs/synthetic/semseg-spunet-r3-test.py`` on the card
+     (SemSegTester, 8 test scenes, 3 RandomScale variants of GridSample's
+     test-mode fragments), each fragment's forward counted, the mIoU above
+     0.95;
+ 23. SpUNet trainers: the ScanNet SpUNet recipe as written (batch 8, slot
+     131072, k=5 stem, SGD under OneCycleLR, Mix3D 0.8, f32) on synthetic
+     100,000-point rooms through its transforms but the ScanNet-only ones,
+     and the semseg-spunet-r3 recipe as written (AdamW under PolyLR): the
+     first epoch of each (4 and 24 steps, then the SemSegEvaluator and the
+     saver), each step launching B3 twice per conv but once for the stem
+     and B4 once per conv, one rulebook per map, every kernel input f32;
+     step median, peak memory, a profiled step, 4 steps of a fresh trainer
+     on a fixed batch whose loss must fall;
+ 24. SpUNet kernels: B3 and B4 at every conv shape of each step (the k=5
+     stem at K = 125, Cin 6 padded to 8) in f32 and bf16 against their plain
+     versions on the maps of a batch of the recipe's data, bit for bit run
+     to run, and timed in f32 per step (B3 forward and, for the input
+     gradient, with Cin and Cout swapped) beside the plain version, the
+     gather + ``torch.matmul`` and the bound; the stem also in bf16;
+ 25. card against CPU: one step of each SpUNet recipe at batch 1 at its
+     slot: loss, every gradient and the running statistics within
+     ``TRAIN_CPU_TOL``;
+ 26. summary: the script's duration, the kernels line (per keypoint training
      step: launches, errors and times of the training levels; B1 and B3 also
      per bench forward in bf16; B1-B4 per pigseg step, ``pigseg_*``, and per
      amp step, ``amp_*``; per r3 step, ``r3_step_*``, and B1 and B3 per r3
-     request, ``r3_request_*``, with ``r3_max_abs_err``), then
-     ``{"ok": true, "device": ...}`` last.
+     request, ``r3_request_*``, with ``r3_max_abs_err``; per ScanNet SpUNet
+     step, ``scannet_spunet_*``, and per semseg_r3 step, ``semseg_r3_step_*``;
+     B3 and B4 per launch at the K = 125 stem, ``k125_*`` and
+     ``k125_bf16_*``), then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -127,6 +160,7 @@ import torch.nn.functional as F
 from scipy.special import expit
 
 from pointcept_keypointdetection_tpu_torch import bench, serve
+from pointcept_keypointdetection_tpu_torch import test as test_cli
 from pointcept_keypointdetection_tpu_torch.convert import load_jax_checkpoint, load_weights
 from pointcept_keypointdetection_tpu_torch.datasets import build_dataset
 from pointcept_keypointdetection_tpu_torch.datasets.collate import collate
@@ -145,12 +179,14 @@ from pointcept_keypointdetection_tpu_torch.kernels import _build
 from pointcept_keypointdetection_tpu_torch.kernels import patch_attention as pa
 from pointcept_keypointdetection_tpu_torch.kernels import sparse_conv as sc
 from pointcept_keypointdetection_tpu_torch.models import build_model, cast_parameters, init_weights
+from pointcept_keypointdetection_tpu_torch.models import sparse_unet as spunet_module
 from pointcept_keypointdetection_tpu_torch.models.losses import build_criteria
 from pointcept_keypointdetection_tpu_torch.ops import sparse as sp
 from pointcept_keypointdetection_tpu_torch.ops.serialization import z_order_encode_np
 from pointcept_keypointdetection_tpu_torch.utils.checkpoint import load_checkpoint
 from pointcept_keypointdetection_tpu_torch.utils.config import Config
 from pointcept_keypointdetection_tpu_torch.utils.events import EventStorage
+from pointcept_keypointdetection_tpu_torch.utils.misc import intersection_and_union
 
 CONFIG = "configs/my_dataset/offset_keypoint_ptv3.py"
 REQUESTS = 3
@@ -177,6 +213,7 @@ DW_SUM = 65536
 # 3.2e-5 (gradients, f32 sums in other orders through 22 Blocks and back) and 1.2e-7 (running statistics)
 TRAIN_CPU_TOL = 1e-3
 TRAIN_EPOCHS = 2  # of 2 steps each
+GATHER_BYTES = 2**31  # a plain conv's f32 gather past which its timing takes one input set
 CARD = ""
 
 
@@ -285,11 +322,19 @@ def attention_case(rng, n, heads, patch, dtype):
     return qkv, valid
 
 
-def conv_case(rng, idx, c, dtype):
-    n = idx.shape[0]
-    feat = card_normal(rng, (n, c), dtype)
-    w = (card_normal(rng, (27, c, c)) / np.sqrt(27 * c)).to(dtype)
+def conv_case(rng, idx, c, dtype, cin=None):
+    """Features [N, cin] and W [K, cin, c] (cin defaults to c) for the map ``idx`` [N, K]."""
+    n, k = idx.shape
+    cin = cin or c
+    feat = card_normal(rng, (n, cin), dtype)
+    w = (card_normal(rng, (k, cin, c)) / np.sqrt(k * cin)).to(dtype)
     return feat, w
+
+
+def padded(feat, w):
+    """What the kernels read where Cin is not a multiple of 8 (SubmConvFunction's zero channels)."""
+    pad = -feat.shape[1] % sc.CHANNELS
+    return (F.pad(feat, (0, pad)), F.pad(w, (0, 0, 0, pad))) if pad else (feat, w)
 
 
 # ---- phases ---------------------------------------------------------------------------------------
@@ -364,11 +409,15 @@ def check_attention(rng, n, heads, patch, dtype) -> float:
                  *TOL[dtype])
 
 
-def check_conv(rng, idx, c, dtype) -> float:
-    n = idx.shape[0]
-    feat, w = conv_case(rng, idx, c, dtype)
-    return check(f"B3 subm_conv N={n} Cin=Cout={c} K=27 hits={int((idx < n).sum())} {str(dtype)[6:]}",
-                 sc.subm_conv(feat, idx, w), sc.subm_conv_plain(feat, idx, w), *TOL[dtype])
+def check_conv(rng, idx, c, dtype, cin=None) -> float:
+    """B3 against its plain version: Cout ``c``, Cin ``cin`` (default ``c``; zero-padded for the kernel
+    where it is not a multiple of 8, as the path pads it)."""
+    n, k = idx.shape
+    feat, w = conv_case(rng, idx, c, dtype, cin)
+    fk, wk = padded(feat, w)
+    widths = f"Cin=Cout={c}" if cin in (None, c) else f"Cin={cin} Cout={c}"
+    return check(f"B3 subm_conv N={n} {widths} K={k} hits={int((idx < n).sum())} {str(dtype)[6:]}",
+                 sc.subm_conv(fk, idx, wk), sc.subm_conv_plain(feat, idx, w), *TOL[dtype])
 
 
 def edge_case_map(rng, n: int = 1000):
@@ -380,21 +429,23 @@ def edge_case_map(rng, n: int = 1000):
     return idx
 
 
-def check_conv_dw(rng, idx, c, dtype) -> float:
-    n = idx.shape[0]
-    feat, _ = conv_case(rng, idx, c, dtype)
+def check_conv_dw(rng, idx, c, dtype, cin=None) -> float:
+    """B4 against its plain version (Cin ``cin``, default ``c``, zero-padded for the kernel and cut back)."""
+    n, k = idx.shape
+    feat, w = conv_case(rng, idx, c, dtype, cin)
     g = card_normal(rng, (n, c), dtype)
     ref = sc.subm_conv_dw_plain(feat, idx, g)
+    got = sc.subm_conv_dw(padded(feat, w)[0], idx, g)[:, :feat.shape[1]]
     longest = int((idx < n).sum(0).max())  # products summed into one entry of dW
-    return check(f"B4 subm_conv_dw N={n} Cin=Cout={c} K=27 hits={int((idx < n).sum())} longest sum {longest} "
-                 f"{str(dtype)[6:]}", sc.subm_conv_dw(feat, idx, g), ref,
-                 DW_TOL * max(1.0, longest / DW_SUM) * ref.abs().max().item(), 0.0)
+    widths = f"Cin=Cout={c}" if cin in (None, c) else f"Cin={cin} Cout={c}"
+    return check(f"B4 subm_conv_dw N={n} {widths} K={k} hits={int((idx < n).sum())} longest sum {longest} "
+                 f"{str(dtype)[6:]}", got, ref, DW_TOL * max(1.0, longest / DW_SUM) * ref.abs().max().item(), 0.0)
 
 
-def check_conv_bits(rng, idx, c, dtype) -> None:
+def check_conv_bits(rng, idx, c, dtype, cin=None) -> None:
     """B3 and B4 twice on one input, one rulebook: equal bits (fixed summation orders, no atomics)."""
     n = idx.shape[0]
-    feat, w = conv_case(rng, idx, c, dtype)
+    feat, w = padded(*conv_case(rng, idx, c, dtype, cin))
     rb = sc.build_rulebook(idx)
     runs = {"B3": lambda: sc.subm_conv(feat, idx, w, rb), "B4": lambda: sc.subm_conv_dw(feat, idx, feat, rb)}
     for name, fn in runs.items():
@@ -693,19 +744,23 @@ def profile_step(trainer, run_step) -> dict:
     return profile_run("one training step", run_step)
 
 
-def counted_training(trainer, label: str, bb, check_step=None) -> dict:
+def counted_training(trainer, label: str, bb, check_step=None, expect=None) -> dict:
     """``trainer.train()`` with every step's launches and rulebook builds counted and checked (each
-    kernel once per Block of the backbone dict ``bb``, B3 twice, B3 and B4 once more for a sparse-conv
-    stem; one rulebook per kernel map), the
-    counts set to 0 just before and read just after the run; its step times (host clock), per-step
-    counts, whole-run counts and peak memory.  ``check_step(trainer)`` runs after each step."""
-    # every Block runs B1 and B3 forward, B2 and B4 backward, and B3 again for the conv's input gradient;
-    # a sparse-conv stem runs B3 forward and B4, and no B3 for its input (the features need no gradient)
-    blocks = sum(bb["enc_depths"]) + sum(bb["dec_depths"])  # 22 at full depth
-    stem = stem_convs(bb)
-    per_step = {"patch_attention_fwd": blocks, "patch_attention_bwd": blocks, "subm_conv_fwd": 2 * blocks + stem,
-                "subm_conv_dw": blocks + stem}
-    levels = len(bb["enc_depths"])  # kernel maps per step: one rulebook each
+    kernel once per Block of the PT-v3m1 backbone dict ``bb``, B3 twice, B3 and B4 once more for a
+    sparse-conv stem; one rulebook per kernel map; or ``expect``: (launches per step, rulebooks per
+    step)), the counts set to 0 just before and read just after the run; its step times (host
+    clock), per-step counts, whole-run counts and peak memory.  ``check_step(trainer)`` runs after
+    each step."""
+    if expect is not None:
+        per_step, levels = expect
+    else:
+        # every Block runs B1 and B3 forward, B2 and B4 backward, and B3 again for the conv's input gradient;
+        # a sparse-conv stem runs B3 forward and B4, and no B3 for its input (the features need no gradient)
+        blocks = sum(bb["enc_depths"]) + sum(bb["dec_depths"])  # 22 at full depth
+        stem = stem_convs(bb)
+        per_step = {"patch_attention_fwd": blocks, "patch_attention_bwd": blocks,
+                    "subm_conv_fwd": 2 * blocks + stem, "subm_conv_dw": blocks + stem}
+        levels = len(bb["enc_depths"])  # kernel maps per step: one rulebook each
     steps, step_ms = [], []
     run_step = trainer.run_step
 
@@ -855,13 +910,16 @@ def input_sets(make, nbytes: int):
     return [make() for _ in range(copies_for(nbytes))]
 
 
-def time_kernel(name, cases, kernel, plain, library, nbytes, flops, dtype, peak=None, unit="f32 FFMA"):
+def time_kernel(name, cases, kernel, plain, library, nbytes, flops, dtype, peak=None, unit="f32 FFMA",
+                single=False):
     """One kernel's device ms beside its plain version's, the library call's and the bound: the larger
-    of ``nbytes`` at the HBM rate and ``flops`` at ``peak`` (default: the dtype's rate)."""
+    of ``nbytes`` at the HBM rate and ``flops`` at ``peak`` (default: the dtype's rate).  ``single``:
+    the plain version and the library call on the first input set only."""
     if dtype == torch.bfloat16:
         unit = "bf16 tensor cores"
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / (peak or PEAK_FLOPS[dtype]) * 1e3
-    row = dict(ms=cuda_ms(kernel, cases), plain_ms=cuda_ms(plain, cases), library_ms=cuda_ms(library, cases),
+    few = cases[:1] if single else cases
+    row = dict(ms=cuda_ms(kernel, cases), plain_ms=cuda_ms(plain, few), library_ms=cuda_ms(library, few),
                bound_ms=max(t_bytes, t_ops), t_bytes=t_bytes, t_ops=t_ops)
     print(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
           f"bound {row['bound_ms']:.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes / 1e6:.2f} MB, "
@@ -918,39 +976,41 @@ def time_conv(rng, idx, c, dtype, dw: bool, cin=None):
     before the timing (a build reads the host, which a CUDA graph cannot hold); ``time_rulebook`` times
     the builds.  f32 runs as 3xTF32, so its operations bound is 3 TF32 products per f32 product at the
     TF32 rate."""
-    n = idx.shape[0]
+    n, k = idx.shape
     cin = cin or c
-    pad = -cin % sc.CHANNELS
     size = torch.tensor([], dtype=dtype).element_size()
     hits = int((idx < n).sum())
 
     def make():
         feat = card_normal(rng, (n, cin), dtype)
-        w = (card_normal(rng, (27, cin, c)) / np.sqrt(27 * cin)).to(dtype)
+        w = (card_normal(rng, (k, cin, c)) / np.sqrt(k * cin)).to(dtype)
         g = card_normal(rng, (n, c), dtype)
         i = idx.clone()
         fp = torch.cat([feat, feat.new_zeros(1, cin)])
-        fk, wk = (F.pad(feat, (0, pad)), F.pad(w, (0, 0, 0, pad))) if pad else (feat, w)  # what the kernels read
-        return dict(f=feat, i=i, w=w, g=g, fp=fp, il=i.long(), w2=w.reshape(27 * cin, c), rb=sc.build_rulebook(i),
+        fk, wk = padded(feat, w)  # what the kernels read
+        return dict(f=feat, i=i, w=w, g=g, fp=fp, il=i.long(), w2=w.reshape(k * cin, c), rb=sc.build_rulebook(i),
                     fk=fk, wk=wk)
 
     flops = 2.0 * hits * cin * c
     ops = dict(flops=flops)
     if dtype == torch.float32:
         ops = dict(flops=3 * flops, peak=PEAK_TF32, unit="3xTF32, 495 TFLOP/s")
+    # the plain version and the library call gather [N, K, Cin] (f32 for the plain one): past GATHER_BYTES
+    # they are timed on one input set (it exceeds the L2 by itself) so that the graph's pool holds one gather
+    single = n * k * cin * 4 > GATHER_BYTES
     if not dw:
-        nbytes = (n * cin + n * c + 27 * cin * c) * size + idx.numel() * 4
+        nbytes = (n * cin + n * c + k * cin * c) * size + idx.numel() * 4
         return time_kernel("B3", input_sets(lambda: (make(),), nbytes),
                            lambda a: sc.subm_conv(a["fk"], a["i"], a["wk"], a["rb"]),
                            lambda a: sc.subm_conv_plain(a["f"], a["i"], a["w"]),
-                           lambda a: torch.matmul(a["fp"][a["il"]].reshape(n, 27 * cin), a["w2"]),
-                           nbytes, dtype=dtype, **ops)
-    nbytes = (n * cin + n * c) * size + idx.numel() * 4 + 27 * cin * c * 4
+                           lambda a: torch.matmul(a["fp"][a["il"]].reshape(n, k * cin), a["w2"]),
+                           nbytes, dtype=dtype, single=single, **ops)
+    nbytes = (n * cin + n * c) * size + idx.numel() * 4 + k * cin * c * 4
     return time_kernel("B4", input_sets(lambda: (make(),), nbytes),
                        lambda a: sc.subm_conv_dw(a["fk"], a["i"], a["g"], a["rb"]),
                        lambda a: sc.subm_conv_dw_plain(a["f"], a["i"], a["g"]),
                        lambda a: torch.matmul(a["fp"][a["il"]].permute(1, 2, 0), a["g"]),
-                       nbytes, dtype=dtype, **ops)
+                       nbytes, dtype=dtype, single=single, **ops)
 
 
 def time_rulebook(idx, repeats: int = 5) -> dict:
@@ -1784,6 +1844,322 @@ def phase_r3_times(cfg, request_maps: dict, step_maps: dict, request_counts: dic
     return sums
 
 
+# ---- the SpUNet slice: exp/semseg_r3, its tester and the ScanNet SpUNet recipe ----------------------------
+
+SPUNET_CONFIG = "configs/scannet/semseg-spunet-v1m1-0-base.py"
+SEMSEG_R3_CONFIG = "configs/synthetic/semseg-spunet-r3.py"
+SEMSEG_R3_TEST_CONFIG = "configs/synthetic/semseg-spunet-r3-test.py"
+SEMSEG_R3_CKPT = "exp/semseg_r3/model_params.ckpt"
+# the mIoU of exp/semseg_r3: tests/test_semseg_checkpoint.py's bound, and how far the card's may lie from the
+# CPU's on the same scenes (a label may differ only on a tie, as in phase 10)
+SEMSEG_R3_MIOU, SEMSEG_R3_MIOU_TOL = 0.95, 0.005
+# the recipe's transforms that need what the synthetic rooms lack (ScanNet's point density and colour
+# statistics); left out of the ScanNet SpUNet recipe's data here
+SCANNET_ONLY = ("RandomDropout", "ElasticDistortion", "ChromaticAutoContrast", "ChromaticTranslation",
+                "ChromaticJitter", "SphereCrop")
+
+
+def spunet_data(split: str, scenes: int, points: int):
+    """SyntheticSemSegDataset rooms through the ScanNet SpUNet recipe's own transforms, less SCANNET_ONLY,
+    with the synthetic features (coord, color): the rooms carry no normals (6 channels either way)."""
+    transform = []
+    for t in Config.fromfile(SPUNET_CONFIG).data[split].transform:
+        if t["type"] not in SCANNET_ONLY:
+            transform.append(dict(t, feat_keys=("coord", "color")) if t["type"] == "Collect" else dict(t))
+    return dict(_delete_=True, type="SyntheticSemSegDataset", split=split, num_scenes=scenes, num_points=points,
+                num_classes=20, transform=transform)
+
+
+def spunet_train_config(save_path: str):
+    """The ScanNet SpUNet recipe as written (batch 8, slot 131072, k=5 stem, SGD 0.05 nesterov under
+    OneCycleLR, Mix3D 0.8, f32) on synthetic rooms of ScanNet's scale: SEG_STEPS steps per epoch."""
+    cfg = Config.fromfile(SPUNET_CONFIG)
+    cfg.merge_from_dict({"save_path": save_path, "seed": 0,
+                         "data.train": spunet_data("train", SEG_STEPS * cfg.batch_size, SCANNET_POINTS),
+                         "data.val": spunet_data("val", cfg.batch_size, SCANNET_POINTS)})
+    return cfg
+
+
+def semseg_r3_train_config(save_path: str):
+    """The semseg-spunet-r3 recipe as written (batch 4, slot 8192, k=3 stem, AdamW 3e-3 under PolyLR, 96
+    scenes of 16,000 points): 24 steps per epoch."""
+    cfg = Config.fromfile(SEMSEG_R3_CONFIG)
+    cfg.merge_from_dict({"save_path": save_path})
+    return cfg
+
+
+def spunet_convs(bb, slot: int, batch: int) -> list:
+    """Every SubMConv of an SpUNet forward (``models/sparse_unet.py``) at ``batch`` samples of ``slot``:
+    (level, N, K, Cin, Cout, is the stem), in call order.  Level 0 is the input's rows; level s + 1 the
+    rows of encoder stage s (at slot divisor 1 as many as level 0's)."""
+    stages = len(bb["layers"]) // 2
+    divisors = bb.get("slot_divisors", (1, 2, 4, 8))
+    rows = [slot * batch] + [batch * max(slot // divisors[s], 1) for s in range(stages)]
+    stem_k, base, ch, layers = bb.get("stem_kernel", 5), bb["base_channels"], bb["channels"], bb["layers"]
+    convs = [(0, rows[0], stem_k**3, bb["in_channels"], base, True)]
+    widths = [base] + [ch[s] for s in range(stages)]
+    for s in range(stages):
+        convs += [(s + 1, rows[s + 1], 27, ch[s], ch[s], False)] * 2 * layers[s]
+    for s in reversed(range(stages)):
+        dec = ch[len(ch) - s - 2]
+        for i in range(layers[len(ch) - s - 1]):
+            convs += [(s, rows[s], 27, dec + widths[s] if i == 0 else dec, dec, False),
+                      (s, rows[s], 27, dec, dec, False)]
+    return convs
+
+
+def spunet_expect(bb, training: bool):
+    """(launches, rulebooks) of one SpUNet forward or training step: B3 once per conv, and once more for
+    each conv's input gradient but the stem's (its input needs none); B4 once per conv in training; one
+    rulebook per kernel map: the stem's (k > 3) and one k=3 map per level."""
+    convs = 1 + 2 * sum(bb["layers"])
+    launches = {"patch_attention_fwd": 0, "patch_attention_bwd": 0,
+                "subm_conv_fwd": 2 * convs - 1 if training else convs, "subm_conv_dw": convs if training else 0}
+    return launches, 1 + len(bb["layers"]) // 2 + int(bb.get("stem_kernel", 5) != 3)
+
+
+def capture_spunet_maps(run, label: str) -> dict:
+    """{(level, K): kernel map} of every map that ``run()``'s SpUNet forward builds: level 0's stem map
+    (k > 3) and k=3 map, then one k=3 map per encoder stage, in that order."""
+    make, built = spunet_module.build_kernel_map, []
+
+    def record(*args, **kwargs):
+        built.append(make(*args, **kwargs))
+        return built[-1]
+
+    spunet_module.build_kernel_map = record
+    try:
+        run()
+    finally:
+        spunet_module.build_kernel_map = make
+    maps, level = {}, 0
+    for kmap in built:
+        idx = kmap.neighbor_idx
+        n, k = idx.shape
+        if (level, k) in maps:
+            level += 1
+        maps[(level, k)] = idx
+        print(f"{label} map level {level} N={n} K={k}: {int((idx < n).sum())} hits, {int((idx[:, k // 2] < n).sum())} "
+              f"valid rows")
+    return maps
+
+
+def phase_spunet_train(label: str, cfg) -> dict:
+    """An SpUNet recipe's trainer on the card with its hooks: its first epoch, each step's launches and
+    rulebooks counted (``spunet_expect``) and every kernel's input held to f32, then the SemSegEvaluator
+    and the saver; one step under torch.profiler; the kernel maps of a batch of the recipe's data; then
+    PROBE_STEPS steps of a fresh trainer on that batch, whose loss must fall."""
+    bb = cfg.model.backbone
+    trainer = Trainer(cfg, device="cuda")
+    total = len(trainer.train_loader) * trainer.max_epoch
+    trainer.max_epoch = 1  # the recipe's first epoch; the schedule keeps the whole run's length
+    print(f"{label}: {len(trainer.train_loader)} steps of batch {cfg.batch_size} per epoch, slot {cfg.slot_size}, "
+          f"stem k={bb.get('stem_kernel', 5)}, mix_prob {cfg.get('mix_prob')}, {cfg.optimizer['type']} under "
+          f"{cfg.scheduler['type']} over {total} steps (lr {trainer.lr_schedule(0):.4e} at step 0), "
+          f"{sum(p.numel() for p in trainer.model.parameters())} parameters")
+    spies, run_step = KernelDtypes(), trainer.run_step
+
+    def watched_step():
+        with spies:
+            run_step()
+
+    trainer.run_step = watched_step
+    run = counted_training(trainer, label, bb, expect=spunet_expect(bb, training=True))
+    trainer.run_step = run_step
+    seen = {name: kinds for name, kinds in spies.seen.items() if kinds}
+    print(f"{label}: dtypes the kernels received in the training steps: {seen}")
+    if set(seen) != {"subm_conv_fwd", "subm_conv_dw"} or any(kinds != {"float32"} for kinds in seen.values()):
+        raise AssertionError(f"{label}: expected B3 and B4 in float32 only, got {seen}")
+    miou = trainer.comm_info.get("current_metric_value")
+    if miou is None or not 0.0 <= miou <= 1.0:
+        raise AssertionError(f"{label}: the evaluator gave no mIoU in [0, 1]: {miou}")
+    print(f"{label}: SemSegEvaluator over {len(trainer.val_loader.dataset)} val scenes: mIoU {miou:.4f} after "
+          f"{len(run['steps'])} steps {stamp()}")
+    run["profile"] = profile_step(trainer, trainer.run_step)
+    batch = next(iter(trainer.train_loader))
+    model = trainer.model.eval()
+    with torch.no_grad():
+        run["maps"] = capture_spunet_maps(lambda: model(build_point_batch(sample_to_device(batch, "cuda"),
+                                                                          batch["num_samples"])), label)
+    del trainer, model
+    torch.cuda.empty_cache()
+    probe = Trainer(cfg, device="cuda")
+    losses = []
+    for _ in range(PROBE_STEPS):
+        probe.comm_info["input_dict"] = batch
+        probe.run_step()
+        losses.append(probe.comm_info["metrics"]["loss"])
+    print(f"{label}: {PROBE_STEPS} steps of a fresh trainer on one fixed batch: losses "
+          f"{[round(x, 5) for x in losses]} {stamp()}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: the loss did not fall on a fixed batch: {losses}")
+    del probe
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_spunet_train_cpu(label: str, cfg) -> dict:
+    """One training step of an SpUNet recipe at batch 1 (one sample of its training data, seed 5, at its
+    slot), card against CPU in f32 within TRAIN_CPU_TOL."""
+    np.random.seed(5)
+    batch_np = collate([build_dataset(dict(cfg.data.train))[0]], cfg.slot_size, np.random)
+    return compare_step(label, dict(cfg.model), batch_np, torch.float32, TRAIN_CPU_TOL)
+
+
+def phase_spunet_kernels(label: str, bb, slot: int, batch: int, maps: dict, counts: dict) -> dict:
+    """B3 and B4 against their plain versions at every conv shape of an SpUNet training step, in f32 and
+    bf16, on the maps of a batch of the recipe's data (the stem's K = k^3 map among them, its Cin padded
+    to 8 for the kernels), all bit for bit run to run; each timed in f32 beside its plain version, its
+    library call (gather + torch.matmul) and its bound, summed per step: B3 per conv forward and, but for
+    the stem, for its input gradient (Cin and Cout swapped); B4 per conv.  The sums' launches are checked
+    against ``counts``, one step's.  Returns (per-step sums, each kernel's largest f32 error, the stem's
+    rows)."""
+    rng = np.random.default_rng(13)
+    convs = spunet_convs(bb, slot, batch)
+    shapes = {}
+    for conv in convs:
+        shapes[conv] = shapes.get(conv, 0) + 1
+    sums, launches, errors, stem = {}, dict.fromkeys(SOURCES, 0), dict.fromkeys(SOURCES, 0.0), {}
+    for (level, n, k, cin, cout, is_stem), reps in shapes.items():
+        idx = maps[(level, k)]
+        for dtype in (torch.float32, torch.bfloat16):
+            found = {"subm_conv_fwd": check_conv(rng, idx, cout, dtype, cin),
+                     "subm_conv_dw": check_conv_dw(rng, idx, cout, dtype, cin)}
+            if not is_stem:
+                found["subm_conv_fwd"] = max(found["subm_conv_fwd"], check_conv(rng, idx, cin, dtype, cout))
+            check_conv_bits(rng, idx, cout, dtype, cin)
+            if dtype == torch.float32:
+                for name, err in found.items():
+                    errors[name] = max(errors[name], err)
+        print(f"{label} conv level {level} N={n} K={k} Cin={cin} Cout={cout}{' (the stem)' if is_stem else ''} f32 "
+              f"(x{reps} per forward):")
+        rows = [("subm_conv_fwd", time_conv(rng, idx, cout, torch.float32, dw=False, cin=cin)),
+                ("subm_conv_dw", time_conv(rng, idx, cout, torch.float32, dw=True, cin=cin))]
+        if not is_stem:
+            rows.append(("subm_conv_fwd", time_conv(rng, idx, cin, torch.float32, dw=False, cin=cout)))
+        else:
+            stem = dict(rows)
+            print(f"{label} stem N={n} K={k} Cin={cin} Cout={cout} bf16:")
+            stem["bf16_fwd"] = time_conv(rng, idx, cout, torch.bfloat16, dw=False, cin=cin)
+            stem["bf16_dw"] = time_conv(rng, idx, cout, torch.bfloat16, dw=True, cin=cin)
+        for name, row in rows:
+            add_row(sums, name, row, reps)
+            launches[name] += reps
+    for name, t in sums.items():
+        if launches[name] != counts[name]:
+            raise AssertionError(f"{label}: {name} timed for {launches[name]} launches, the step made {counts[name]}")
+        t["launches"] = launches[name]
+        print(f"{name} per {label} step (f32, sum over its {launches[name]} launches): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms {stamp()}")
+    return sums, errors, stem
+
+
+def phase_semseg_r3_anchor() -> dict:
+    """``exp/semseg_r3`` read by the port's reader into its DefaultSegmentor over SpUNet-v1m1, on the card
+    and on the CPU: its 8 val scenes (np.random seeded with the recipe's seed, 123; batch 1 at slot 8192),
+    each card forward's launches (B3 once per conv) and rulebooks (one per level) counted; logits card
+    against CPU within CPU_TOL; labels apart only on a tie; the mIoU over the valid rows of the 8 scenes
+    (intersections and unions summed) above SEMSEG_R3_MIOU on the card, within SEMSEG_R3_MIOU_TOL of the
+    CPU's."""
+    cfg = Config.fromfile(SEMSEG_R3_CONFIG)
+    t0 = time.perf_counter()
+    state = load_jax_checkpoint(SEMSEG_R3_CKPT)
+    print(f"semseg_r3: {SEMSEG_R3_CKPT} read by the port's reader in {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+          f"{len(state)} tensors")
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = build_model(dict(cfg.model))
+        models[dev].load_state_dict(state, strict=True)
+        models[dev].to(dev).eval()
+    bb, k = cfg.model.backbone, cfg.data.num_classes
+    expect, levels = spunet_expect(bb, training=False)
+    ds = build_dataset(dict(cfg.data.val))
+    np.random.seed(cfg.seed)
+    batches = [collate([ds[i]], cfg.slot_size, np.random) for i in range(len(ds))]
+    sums = {dev: np.zeros((2, k)) for dev in models}
+    worst, ties, times = 0.0, 0, []
+    for i, b in enumerate(batches):
+        logits = {}
+        for dev, model in models.items():
+            batch = sample_to_device(b, dev)
+            set_launch_counts_to_zero()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = model(build_point_batch(batch, 1), batch)["seg_logits"]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                counts, built = launch_counts(), sc.rulebook_builds
+                if counts != expect or built != levels:
+                    raise AssertionError(f"semseg_r3 scene {i}: expected launches {expect} and {levels} rulebooks, "
+                                         f"got {counts} and {built}")
+            logits[dev] = out.float().cpu()
+            inter, union, _ = intersection_and_union(logits[dev].argmax(-1), torch.from_numpy(b["segment"]), k, -1,
+                                                     torch.from_numpy(b["valid"]))
+            sums[dev] += np.stack([inter.numpy(), union.numpy()])
+        v = torch.from_numpy(b["valid"])
+        a, ref = logits["cuda"][v], logits["cpu"][v]
+        err = (a - ref).abs().max().item()
+        rel = err / max(1.0, ref.abs().max().item())
+        worst = max(worst, rel)
+        if not (torch.isfinite(a).all() and rel <= CPU_TOL):
+            raise AssertionError(f"semseg_r3 scene {i}: card and CPU disagree on the logits: {err:.3e}")
+        top2 = ref.topk(2, -1).values
+        differ = a.argmax(-1) != ref.argmax(-1)
+        if (differ & (top2[:, 0] - top2[:, 1] > 2 * err)).any():
+            raise AssertionError(f"semseg_r3 scene {i}: labels differ away from a tie")
+        ties += int(differ.sum())
+    miou = {dev: float(np.mean(s[0] / np.maximum(s[1], 1))) for dev, s in sums.items()}
+    print(f"semseg_r3 card vs cpu logits over {len(batches)} val scenes (valid rows): worst max abs err / max(1, "
+          f"|cpu|) {worst:.3e}, tol {CPU_TOL:g}; {ties} labels differ, each on a tie; card forward (batch 1, slot "
+          f"{cfg.slot_size}) median {statistics.median(times):.2f} ms (host clock)")
+    print(f"semseg_r3 anchor (exp/semseg_r3, {len(batches)} val scenes, np.random seed {cfg.seed}): mIoU card "
+          f"{miou['cuda']:.6f}, CPU {miou['cpu']:.6f}; bound > {SEMSEG_R3_MIOU}, card within {SEMSEG_R3_MIOU_TOL} of "
+          f"the CPU {stamp()}")
+    if not (miou["cuda"] > SEMSEG_R3_MIOU and abs(miou["cuda"] - miou["cpu"]) < SEMSEG_R3_MIOU_TOL):
+        raise AssertionError(f"the card's semseg_r3 mIoU {miou['cuda']} is out of bounds or not the CPU's {miou['cpu']}")
+    return dict(miou=miou, worst=worst)
+
+
+def phase_semseg_r3_tester() -> dict:
+    """The port's ``test`` CLI on the card over ``configs/synthetic/semseg-spunet-r3-test.py``: exp/semseg_r3
+    through SemSegTester, 8 synthetic test scenes, 3 RandomScale variants of GridSample's test-mode
+    fragments; every fragment's forward launches B3 once per conv and builds one rulebook per level; the
+    mIoU above SEMSEG_R3_MIOU and a prediction saved per scene."""
+    bb = Config.fromfile(SEMSEG_R3_CONFIG).model.backbone
+    expect, levels = spunet_expect(bb, training=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.random.seed(123)  # the test scenes' GridSample (train mode) draws from it
+        set_launch_counts_to_zero()
+        t0 = time.perf_counter()
+        result = test_cli.main(["--config-file", SEMSEG_R3_TEST_CONFIG, "--options", f"save_path={tmp}"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, built = launch_counts(), sc.rulebook_builds
+        saved = sorted(f for f in os.listdir(os.path.join(tmp, "result")) if f.endswith("_pred.npy"))
+    forwards = built // levels
+    print(f"semseg_r3 tester (test CLI on the card): {forwards} fragment forwards in {seconds:.2f} s (host clock, "
+          f"data included), launches {counts}, rulebooks {built}; {len(saved)} predictions saved; mIoU/mAcc/allAcc "
+          f"{result['mIoU']:.4f}/{result['mAcc']:.4f}/{result['allAcc']:.4f} {stamp()}")
+    if not forwards or built != forwards * levels or counts != {k: v * forwards for k, v in expect.items()}:
+        raise AssertionError(f"semseg_r3 tester: launches {counts} and {built} rulebooks are not {forwards} forwards' "
+                             f"{expect} and {levels}")
+    if len(saved) != 8 or not result["mIoU"] > SEMSEG_R3_MIOU:
+        raise AssertionError(f"semseg_r3 tester: {len(saved)} predictions saved, mIoU {result['mIoU']}")
+    return dict(result, forwards=forwards, seconds=seconds)
+
+
+def spunet_rows(kernels, key: str, sums: dict, errors: dict, counts: dict) -> None:
+    """``{key}_*`` per-step entries of B3 and B4 on the kernels line (0 launches of B1 and B2)."""
+    for row in kernels:
+        t = sums.get(row["name"])
+        row[f"{key}_launches"] = counts[row["name"]]
+        if t is not None:
+            row.update({f"{key}_max_abs_err": errors[row["name"]], f"{key}_ms": t["ms"],
+                        f"{key}_plain_ms": t["plain_ms"], f"{key}_library_ms": t["library_ms"],
+                        f"{key}_bound_ms": t["bound_ms"],
+                        f"{key}_bound_by": "operations" if t["t_ops"] >= t["t_bytes"] else "bytes"})
+
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -1851,6 +2227,32 @@ def main() -> None:
         row["r3_max_abs_err"] = r3_errors[row["name"]]
     print(f"r3: anchor {r3['anchor']} mm on the card; request median {statistics.median(r3_latencies):.2f} ms; "
           f"step median {statistics.median(r3_train['step_ms'][1:]):.2f} ms {stamp()}")
+    anchor = phase_semseg_r3_anchor()
+    tester = phase_semseg_r3_tester()
+    spunet = {}
+    with tempfile.TemporaryDirectory() as root:
+        for key, label, cfg in (("scannet_spunet", "scannet spunet train", spunet_train_config(os.path.join(root, "s"))),
+                                ("semseg_r3_step", "semseg_r3 train", semseg_r3_train_config(os.path.join(root, "r")))):
+            trained = phase_spunet_train(label, cfg)
+            step = trained["steps"][-1]
+            sums, errs, stem = phase_spunet_kernels(key, cfg.model.backbone, cfg.slot_size, cfg.batch_size,
+                                                    trained.pop("maps"), step)
+            phase_spunet_train_cpu(label, cfg)
+            spunet_rows(kernels, key, sums, errs, step)
+            spunet[key] = (trained, stem)
+    stem = spunet["scannet_spunet"][1]
+    for row in kernels:  # the k=5 stem's conv, per launch, on the ScanNet recipe's map (Cin 6 padded to 8)
+        part = {"subm_conv_fwd": "fwd", "subm_conv_dw": "dw"}.get(row["name"])
+        if part:
+            for prefix, t in (("k125_", stem[row["name"]]), ("k125_bf16_", stem[f"bf16_{part}"])):
+                row.update({f"{prefix}{k}": t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    for key, (trained, _) in spunet.items():
+        print(f"{key}: step median {statistics.median(trained['step_ms'][1:]):.2f} ms (host clock, steps "
+              f"2-{len(trained['step_ms'])}), peak memory {trained['peak_bytes'] / 2**30:.2f} GiB; profiled step: "
+              f"busy {trained['profile']['busy_ms']:.2f} ms, idle share {trained['profile']['idle_share']:.3f}, "
+              f"{trained['profile']['kernels']} kernels {stamp()}")
+    print(f"semseg_r3: anchor mIoU {anchor['miou']}; tester mIoU {tester['mIoU']:.4f} over {tester['forwards']} "
+          f"fragment forwards {stamp()}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s {stamp()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

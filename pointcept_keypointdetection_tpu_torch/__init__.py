@@ -13,5 +13,8 @@ inference path of ``DefaultSegmentorV2`` in f32 and bf16
 ``bench``, the counterpart of the repository's ``bench.py``); and its
 training path (``models.losses``, ``OneCycleLR``, ``amp``, the segmentation
 transforms and datasets, ``SemSegEvaluator``) for the pigseg and ScanNet
-PT-v3m1 recipes.
+PT-v3m1 recipes; the committed keypoint checkpoint (``utils.checkpoint``,
+``convert``); and SpUNet-v1m1 under ``DefaultSegmentor`` with
+``engines.test.SemSegTester`` and the ``test`` CLI, ``PolyLR``, SGD and
+Mix3D, for ``exp/semseg_r3`` and the ScanNet SpUNet recipe.
 """

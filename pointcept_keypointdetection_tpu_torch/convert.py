@@ -15,7 +15,14 @@ arrays (what ``flax`` holds, or a checkpoint reader returns).  The rules:
   ``PointTransformerV3_0`` is ``backbone`` (in ``OffsetKeypointPTv3`` and
   in ``DefaultSegmentorV2``, whose ``seg_head`` keeps its name), the head's ``Dense_{i}`` is
   ``head.{2i}``, the xCPE's ``Dense_0`` / ``LayerNorm_0`` are ``linear`` /
-  ``norm``, the MLP's ``Dense_0`` / ``Dense_1`` are ``fc1`` / ``fc2``.
+  ``norm``, the MLP's ``Dense_0`` / ``Dense_1`` are ``fc1`` / ``fc2``;
+* SpUNet (``models/sparse_unet.py``, in ``DefaultSegmentor``): ``SpUNet_0``
+  is ``backbone``, and the names flax numbers in call order become list
+  entries of the same number: its ``SubMConv_0`` is ``stem``,
+  ``MaskedBatchNorm_{i}`` ``norms.{i}``, ``StridedConvDown_{i}``
+  ``downs.{i}``, ``InverseConvUp_{i}`` ``ups.{i}``, ``BasicBlock_{i}``
+  ``blocks.{i}`` and ``Dense_0`` ``head``; in a block ``SubMConv_0`` /
+  ``SubMConv_1`` are ``conv1`` / ``conv2`` and ``Dense_0`` is ``proj``.
 
 ``load_jax_checkpoint`` reads a flax-msgpack checkpoint of the JAX package
 (``utils/checkpoint.py``, no ``msgpack`` package needed) and converts its
@@ -41,6 +48,19 @@ _PARENT_RENAMES = {
     ("mlp", "Dense_0"): "fc1",
     ("mlp", "Dense_1"): "fc2",
 }
+_BACKBONES = ("PointTransformerV3_0", "SpUNet_0")
+# (parent pattern, child pattern, the port's name): SpUNet's call-order names
+_NUMBERED = tuple((re.compile(parent), re.compile(child), name) for parent, child, name in (
+    (r"^SpUNet_0$", r"^SubMConv_0$", "stem"),
+    (r"^SpUNet_0$", r"^MaskedBatchNorm_(\d+)$", r"norms.\1"),
+    (r"^SpUNet_0$", r"^StridedConvDown_(\d+)$", r"downs.\1"),
+    (r"^SpUNet_0$", r"^InverseConvUp_(\d+)$", r"ups.\1"),
+    (r"^SpUNet_0$", r"^BasicBlock_(\d+)$", r"blocks.\1"),
+    (r"^SpUNet_0$", r"^Dense_0$", "head"),
+    (r"^BasicBlock_\d+$", r"^SubMConv_0$", "conv1"),
+    (r"^BasicBlock_\d+$", r"^SubMConv_1$", "conv2"),
+    (r"^BasicBlock_\d+$", r"^Dense_0$", "proj"),
+))
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -67,12 +87,17 @@ def _unstack(path: Tuple[str, ...], value: np.ndarray):
 def _rename(path: Tuple[str, ...]) -> Tuple[str, ...]:
     out = []
     for i, part in enumerate(path):
-        if part == "PointTransformerV3_0":
+        parent = path[i - 1] if i > 0 else None
+        numbered = [child.sub(name, part) for pattern, child, name in _NUMBERED
+                    if parent is not None and pattern.match(parent) and child.match(part)]
+        if part in _BACKBONES:
             part = "backbone"
         elif i == 0 and part.startswith("Dense_"):
             part = f"head.{2 * int(part.split('_')[1])}"
-        elif i > 0 and (path[i - 1], part) in _PARENT_RENAMES:
-            part = _PARENT_RENAMES[(path[i - 1], part)]
+        elif (parent, part) in _PARENT_RENAMES:
+            part = _PARENT_RENAMES[(parent, part)]
+        elif numbered:
+            part = numbered[0]
         out.append(part)
     out[-1] = _LEAF.get(out[-1], out[-1])
     return tuple(out)

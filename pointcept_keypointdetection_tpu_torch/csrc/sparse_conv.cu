@@ -14,7 +14,10 @@
 // (kernels/sparse_conv.py::build_rulebook), built once per map.  Its rows are
 // sorted by their K-bit hit mask (the bitmask-sorted implicit GEMM of
 // TorchSparse++), rows with no hit last, and cut into tiles of TILE sorted
-// rows; each busy tile carries the mask of the offsets any of its rows hits.
+// rows; each busy tile carries the mask of the offsets any of its rows hits,
+// in ceil(K / 32) words of 32 bits (word w of tile t at tile_mask[w * tiles +
+// t]), so one launch takes any K up to MAX_OFFSETS: the k=5 stem's 125
+// offsets as the k=3 convs' 27, the whole sum in one block's registers.
 // The kernel is output-stationary: a block owns one busy tile x BN output
 // columns and loops over the tile's busy offsets only; tiles past the busy
 // ones hold no hit and are not computed (with one split their blocks write
@@ -92,7 +95,7 @@ constexpr int TILE = 64;      // B3: sorted rows per block, the rulebook's tile
 constexpr int BK = 32;        // reduction depth of one stage: B3 input channels, B4 hit pairs
 constexpr int STAGES = 3;     // cp.async ring depth
 constexpr int THREADS = 128;  // four warps, 2 x 2 over the block's tile
-constexpr int MAX_OFFSETS = 31;  // offsets a tile mask (int32) holds
+constexpr int MAX_OFFSETS = 343;  // a 7^3 cube: its offset list and slab plus the ring fit shared memory
 constexpr int DW_IDX = 1024;  // B4: hit pairs whose indices a block stages at a time
 
 // One stage of the block's product on one warp: acc[MT][NT] (m16 x n8 tiles
@@ -162,6 +165,20 @@ __device__ __forceinline__ void mma_stage(float (&acc)[MT][NT][4], const T* a, i
         for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[mt][nt][q];
   } else {
     static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
+    // B4 (A_KMAJOR) sums a dW entry over a run of up to tens of thousands of hit pairs in one block: as
+    // in f32, each stage's products go to fresh registers, added to acc with round-to-nearest f32 adds,
+    // so that the tensor cores' truncating adds do not bias the long sum (accumulated in place, a run of
+    // ~34,000 pairs of the k=5 stem's map read 4.1e-5 of max|dW| against the plain einsum).  B3's sums
+    // are short (busy offsets x Cin / 16 adds): in place.
+    float part[MT][NT][4];
+    if constexpr (A_KMAJOR) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) part[mt][nt][q] = 0.f;
+    }
 #pragma unroll
     for (int k0 = 0; k0 < BK; k0 += 16) {
       uint32_t af[MT][4], bf[NT][2];
@@ -186,7 +203,20 @@ __device__ __forceinline__ void mma_stage(float (&acc)[MT][NT][4], const T* a, i
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt]);
+        for (int nt = 0; nt < NT; ++nt) {
+          if constexpr (A_KMAJOR)
+            mma_bf16(part[mt][nt], af[mt], bf[nt]);
+          else
+            mma_bf16(acc[mt][nt], af[mt], bf[nt]);
+        }
+    }
+    if constexpr (A_KMAJOR) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[mt][nt][q];
     }
   }
 }
@@ -200,8 +230,12 @@ struct ConvTile {
   static constexpr int MT = TILE / 32, NT = BN / 16;   // m16 x n8 tiles of one warp's 32 x BN/2
   static constexpr int A_COPIES = TILE * BK / VEC / THREADS, B_COPIES = BK * BN / VEC / THREADS;  // per thread
   static_assert(A_COPIES * THREADS * VEC == TILE * BK && B_COPIES * THREADS * VEC == BK * BN, "whole copies");
-  static constexpr size_t smem(int slab_rows) {
-    return (size_t)slab_rows * TILE * sizeof(int) + (size_t)STAGES * STAGE * sizeof(T);
+  // the block's busy offsets (16-byte aligned), their TILE neighbour indices each, then the ring
+  __host__ __device__ static constexpr size_t offs_bytes(int offsets) {
+    return ((size_t)offsets * sizeof(int) + 15) / 16 * 16;
+  }
+  static constexpr size_t smem(int offsets) {
+    return offs_bytes(offsets) + (size_t)offsets * TILE * sizeof(int) + (size_t)STAGES * STAGE * sizeof(T);
   }
 };
 
@@ -216,9 +250,9 @@ __global__ void __launch_bounds__(THREADS) subm_conv_kernel(
     int kvol, int cin, int cout, int busy_tiles, int per_split) {
   using L = ConvTile<T, BN>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int offs[32];  // the block's busy offsets, ascending
-  int* slab = reinterpret_cast<int*>(smem);  // slab[j * TILE + r]: neighbour of sorted row r at offset offs[j]
-  T* stages = reinterpret_cast<T*>(smem + (size_t)per_split * TILE * sizeof(int));
+  int* offs = reinterpret_cast<int*>(smem);  // the block's busy offsets, ascending
+  int* slab = reinterpret_cast<int*>(smem + L::offs_bytes(per_split));  // slab[j * TILE + r]: at offs[j]
+  T* stages = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(slab) + (size_t)per_split * TILE * sizeof(int));
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int col0 = blockIdx.x * BN, p0 = blockIdx.y * TILE;
@@ -232,13 +266,19 @@ __global__ void __launch_bounds__(THREADS) subm_conv_kernel(
     return;
   }
 
-  const int d_begin = blockIdx.z * per_split, d_count = min(kvol - d_begin, per_split);
-  const unsigned span = d_count <= 0 ? 0u : (d_count >= 32 ? 0xffffffffu : (1u << d_count) - 1u) << d_begin;
-  const unsigned mask = static_cast<unsigned>(tile_mask[blockIdx.y]) & span;
-  const int busy = __popc(mask);
-  if (tid < 32 && ((mask >> tid) & 1u)) offs[__popc(mask & ((1u << tid) - 1u))] = tid;
+  // the busy offsets of [d_begin, d_end), word by word of the tile's mask; every thread counts them
+  const int tiles = (n + TILE - 1) / TILE;
+  const int d_begin = blockIdx.z * per_split, d_end = min(kvol, d_begin + per_split);
+  int busy = 0;
+  for (int wd = d_begin >> 5; d_end > d_begin && 32 * wd < d_end; ++wd) {
+    const int lo = max(d_begin - 32 * wd, 0), hi = min(d_end - 32 * wd, 32);  // 0 <= lo < hi <= 32
+    const unsigned span = (hi == 32 ? 0xffffffffu : (1u << hi) - 1u) & ~((1u << lo) - 1u);
+    const unsigned word = static_cast<unsigned>(tile_mask[(long)wd * tiles + blockIdx.y]) & span;
+    if (tid < 32 && ((word >> tid) & 1u)) offs[busy + __popc(word & ((1u << tid) - 1u))] = 32 * wd + tid;
+    busy += __popc(word);
+  }
   __syncthreads();
-  const long stride = (long)((n + TILE - 1) / TILE) * TILE;  // nbr's row length
+  const long stride = (long)tiles * TILE;  // nbr's row length
   for (int e = tid; e < busy * (TILE / 4); e += THREADS) {
     const int j = e / (TILE / 4), q = e % (TILE / 4);
     reinterpret_cast<int4*>(slab)[e] = reinterpret_cast<const int4*>(nbr + offs[j] * stride + p0)[q];
@@ -492,7 +532,8 @@ int dw_dispatch(const void* feat, const void* grad, float* out, float* ws, const
 // feat [n, cin], w [kvol, cin, cout] and out [n, cout] of one dtype (0 = f32,
 // 1 = bf16), cin and cout multiples of 8, rows 16-byte aligned; the rulebook's
 // perm int32 [n], nbr int32 [kvol, ceil(n / 64) * 64] and tile_mask int32
-// [ceil(n / 64)], whose first busy_tiles tiles hold every row with a hit; with
+// [ceil(kvol / 32) * ceil(n / 64)] (word-major), whose first busy_tiles tiles
+// hold every row with a hit; with
 // splits > 1, workspace is f32 [splits, busy_tiles * 64, cout] (else unused).
 // Returns cudaGetLastError().
 extern "C" int subm_conv_fwd(const void* feat, const void* w, void* out, void* workspace, const void* perm,

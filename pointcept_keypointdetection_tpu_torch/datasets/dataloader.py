@@ -5,8 +5,9 @@ datasets/dataloader.py:27-135``) for one process: a permutation per epoch
 from ``seed + epoch``, collation into padded slots (``collate.py``, whose
 subsample draws from the global ``np.random`` as the JAX copy's does), a
 background thread that prefetches batches, and ``num_workers`` threads that
-prepare samples in parallel.  Not ported: sharding over processes and
-Mix3D (``mix_prob``).
+prepare samples in parallel, and Mix3D (``mix_prob``, drawn from the
+global ``np.random`` in JAX's order: ``collate.py``).  Not ported: sharding
+over processes.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from .collate import collate
 
 class Dataloader:
     def __init__(self, dataset, batch_size: int, slot_size: int, shuffle: bool = True, drop_last: bool = True,
-                 seed: int = 0, prefetch: int = 2, num_workers: int = 0):
+                 seed: int = 0, prefetch: int = 2, num_workers: int = 0, mix_prob: float = 0.0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.slot_size = slot_size
@@ -33,6 +34,7 @@ class Dataloader:
         self.seed = seed
         self.prefetch = prefetch
         self.num_workers = num_workers
+        self.mix_prob = mix_prob
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -69,10 +71,10 @@ class Dataloader:
         for sample in self._samples(self._indices()):
             batch.append(sample)
             if len(batch) == self.batch_size:
-                yield collate(batch, self.slot_size, np.random)
+                yield collate(batch, self.slot_size, np.random, self.mix_prob)
                 batch = []
         if batch and not self.drop_last:
-            yield collate(batch, self.slot_size, np.random)
+            yield collate(batch, self.slot_size, np.random, self.mix_prob)
 
     def _produce(self, out_q: queue.Queue, stop: threading.Event):
         try:

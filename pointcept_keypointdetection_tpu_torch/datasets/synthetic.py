@@ -8,10 +8,12 @@ mm-unit offset and mask targets.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 
 from .builder import DATASETS
-from .transform import Compose
+from .transform import TRANSFORMS, Compose
 
 
 def body_cloud(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -69,21 +71,34 @@ def make_scene(rng: np.random.Generator, num_points: int, num_classes: int):
 
 @DATASETS.register_module()
 class SyntheticSemSegDataset:
-    """Synthetic rooms for semantic segmentation, in train and val modes
-    (`synthetic.py:63-122`); scene i of a split is ``make_scene`` seeded with
-    seed + i (+ 10,000 outside train).  Test mode (fragments for the tester)
-    is not ported yet."""
+    """Synthetic rooms for semantic segmentation (`synthetic.py:63-135`);
+    scene i of a split is ``make_scene`` seeded with seed + i (+ 10,000
+    outside train).
+
+    Test mode (for ``SemSegTester``): a scene goes through ``transform``,
+    then each ``test_cfg.aug_transform`` variant of a deep copy through the
+    ``voxelize`` transform (GridSample's test mode: parts with ``index``),
+    each part through ``crop`` where set, and every fragment through
+    ``post_transform``; returned as ``{"segment", "name", "fragment_list"}``.
+    As in JAX, the scene-level ``origin_segment`` and ``inverse`` that a
+    ``Copy`` and a GridSample with ``return_inverse`` leave in ``transform``'s
+    output are not carried into that dict."""
 
     def __init__(self, split="train", num_scenes=8, num_points=8192, num_classes=6, transform=None, seed=0, loop=1,
                  test_mode=False, test_cfg=None):
-        if test_mode:
-            raise NotImplementedError("SyntheticSemSegDataset: test mode is not ported yet")
         self.num_scenes = num_scenes
         self.num_points = num_points
         self.num_classes = num_classes
         self.transform = Compose(transform)
         self.seed = seed + (0 if split == "train" else 10_000)
-        self.loop = loop
+        self.loop = loop if not test_mode else 1
+        self.test_mode = test_mode
+        if test_mode:
+            tc = test_cfg or {}
+            self.test_voxelize = TRANSFORMS.build(dict(tc["voxelize"])) if tc.get("voxelize") else None
+            self.test_crop = TRANSFORMS.build(dict(tc["crop"])) if tc.get("crop") else None
+            self.post_transform = Compose(tc.get("post_transform"))
+            self.aug_transform = [Compose(aug) for aug in tc.get("aug_transform", [[]])]
 
     def get_data(self, idx):
         idx = idx % self.num_scenes
@@ -91,7 +106,25 @@ class SyntheticSemSegDataset:
         coord, color, segment, instance = make_scene(rng, self.num_points, self.num_classes)
         return dict(coord=coord, color=color, segment=segment, instance=instance, name=f"scene{idx}")
 
+    def prepare_test_data(self, idx):
+        data_dict = self.transform(self.get_data(idx))
+        result_dict = dict(segment=data_dict.pop("segment"), name=data_dict.pop("name"))
+        fragment_list = []
+        for aug in self.aug_transform:
+            data = aug(copy.deepcopy(data_dict))
+            if self.test_voxelize is not None:
+                parts = self.test_voxelize(data)
+            else:
+                data["index"] = np.arange(data["coord"].shape[0])
+                parts = [data]
+            for part in parts:
+                fragment_list += self.test_crop(part) if self.test_crop else [part]
+        result_dict["fragment_list"] = [self.post_transform(f) for f in fragment_list]
+        return result_dict
+
     def __getitem__(self, idx):
+        if self.test_mode:
+            return self.prepare_test_data(idx)
         return self.transform(self.get_data(idx))
 
     def __len__(self):

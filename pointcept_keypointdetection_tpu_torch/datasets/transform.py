@@ -2,9 +2,11 @@
 training configs.
 
 The port's copies of ``pointcept_keypointdetection_tpu/datasets/
-transform.py``: ``Compose``, ``Collect``, ``Update``, ``NormalizeColor``,
-``CenterShift``, ``RandomRotate``, ``RandomScale``, ``RandomFlip``,
-``RandomJitter``, ``GridSample`` (train mode) and ``ShufflePoint``.  Their
+transform.py``: ``Compose``, ``Collect``, ``Copy``, ``Update``,
+``NormalizeColor``, ``CenterShift``, ``RandomRotate``, ``RandomScale`` (a
+fixed scale [s, s], as the test-time aug lists use it, is one draw that
+returns s), ``RandomFlip``, ``RandomJitter``, ``GridSample`` (train and test
+mode, ``return_inverse``) and ``ShufflePoint``.  Their
 random draws come from the global ``np.random`` stream in the JAX package's
 order, and they keep its dtypes (a rotation or a scale turns f32
 coordinates into f64), so the same seed gives the same arrays.  The other
@@ -12,6 +14,8 @@ transforms are not ported yet.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 
@@ -38,11 +42,13 @@ VALID_INDEX_KEYS = (
 )
 
 
-def index_operator(data_dict, index):
+def index_operator(data_dict, index, duplicate=False):
+    """Index every per-point key in place, or with ``duplicate`` in a shallow copy of the dict."""
+    out = dict(data_dict) if duplicate else data_dict
     for key in data_dict.get("index_valid_keys", VALID_INDEX_KEYS):
-        if key in data_dict:
-            data_dict[key] = data_dict[key][index]
-    return data_dict
+        if key in out:
+            out[key] = out[key][index]
+    return out
 
 
 class Compose:
@@ -69,6 +75,21 @@ class Collect:
         feats = [f.reshape(f.shape[0], -1) if f.ndim > 1 else f.reshape(-1, 1) for f in feats]
         out["feat"] = np.concatenate(feats, axis=1).astype(np.float32)
         return out
+
+
+@TRANSFORMS.register_module()
+class Copy:
+    """Deep copies of the keys of ``keys_dict`` under its values (default: coord and segment as
+    origin_coord and origin_segment)."""
+
+    def __init__(self, keys_dict=None):
+        self.keys_dict = keys_dict or dict(coord="origin_coord", segment="origin_segment")
+
+    def __call__(self, data_dict):
+        for src, dst in self.keys_dict.items():
+            if src in data_dict:
+                data_dict[dst] = copy.deepcopy(data_dict[src])
+        return data_dict
 
 
 @TRANSFORMS.register_module()
@@ -186,35 +207,68 @@ class RandomJitter:
 
 
 def _voxel_runs(grid_coord: np.ndarray):
-    """(by_voxel, run_start, run_len): rows sorted voxel by voxel by their exact
-    48-bit Morton key; voxel v owns sorted positions run_start[v] : +run_len[v]."""
+    """(by_voxel, run_start, run_len, voxel_of_row): rows sorted voxel by voxel by their exact
+    48-bit Morton key; voxel v owns sorted positions run_start[v] : +run_len[v], and row r lies in
+    voxel voxel_of_row[r]."""
     if grid_coord.max() >= 2**16:
         raise ValueError("scene exceeds the 16-bit voxel extent")
     key = z_order_encode_np(grid_coord, depth=16)
     by_voxel = np.argsort(key, kind="stable")
-    _, run_len = np.unique(key[by_voxel], return_counts=True)
+    _, voxel_of_sorted, run_len = np.unique(key[by_voxel], return_inverse=True, return_counts=True)
     run_start = np.concatenate([[0], np.cumsum(run_len[:-1])])
-    return by_voxel, run_start, run_len
+    voxel_of_row = np.empty_like(voxel_of_sorted)
+    voxel_of_row[by_voxel] = voxel_of_sorted
+    return by_voxel, run_start, run_len, voxel_of_row
 
 
 @TRANSFORMS.register_module()
 class GridSample:
-    """Voxel down-sampling, train mode: one uniformly random row per voxel,
-    drawn as one ``np.random.randint`` vector modulo the run lengths; always
-    returns ``grid_coord``, shifted to start at 0."""
+    """Voxel down-sampling over exact Morton-keyed runs (`transform.py:409-490`); ``grid_coord`` is
+    shifted to start at 0 (``hash_type`` is accepted and unused, as in JAX).
 
-    def __init__(self, grid_size=0.05, mode="train", return_grid_coord=True):
-        if mode != "train" or not return_grid_coord:
-            raise NotImplementedError("GridSample: only mode='train' with grid_coord is ported")
+    Train mode: one uniformly random row per voxel, drawn as one ``np.random.randint`` vector
+    modulo the run lengths; with ``return_inverse``, ``inverse`` maps each input row to its voxel's
+    row of the output.  Test mode: a list of parts, part i keeping each voxel's (i mod run
+    length)-th row, with ``index`` (the input rows it keeps) and, with ``return_inverse``,
+    ``inverse``; every row lies in at least one part.  Not ported: ``return_min_coord``,
+    ``return_displacement`` and data-efficient ``sampled_index``."""
+
+    def __init__(self, grid_size=0.05, hash_type="fnv", mode="train", return_inverse=False, return_grid_coord=True,
+                 return_min_coord=False, return_displacement=False, project_displacement=False):
+        if mode not in ("train", "test"):
+            raise NotImplementedError(f"GridSample: mode {mode!r}")
+        if return_min_coord or return_displacement or project_displacement:
+            raise NotImplementedError("GridSample: min_coord and displacement outputs are not ported yet")
         self.grid_size = grid_size
+        self.mode = mode
+        self.return_inverse = return_inverse
+        self.return_grid_coord = return_grid_coord
 
     def __call__(self, data_dict):
+        if "sampled_index" in data_dict:
+            raise NotImplementedError("GridSample: sampled_index (data-efficient benchmarks) is not ported yet")
         grid_coord = np.floor(data_dict["coord"] / self.grid_size).astype(np.int64)
         grid_coord = grid_coord - grid_coord.min(0)
-        by_voxel, run_start, run_len = _voxel_runs(grid_coord)
+        by_voxel, run_start, run_len, voxel_of_row = _voxel_runs(grid_coord)
+        if self.mode == "test":
+            parts = []
+            for i in range(run_len.max()):
+                keep = by_voxel[run_start + i % run_len]
+                data_dict["grid_coord"] = grid_coord
+                part = index_operator(data_dict, keep, duplicate=True)
+                part["index"] = keep
+                if self.return_inverse:
+                    part["inverse"] = voxel_of_row
+                parts.append(part)
+            return parts
         offsets = np.random.randint(0, run_len.max(), run_len.size) % run_len
+        if self.return_inverse:
+            data_dict["inverse"] = voxel_of_row
         data_dict["grid_coord"] = grid_coord
-        return index_operator(data_dict, by_voxel[run_start + offsets])
+        data_dict = index_operator(data_dict, by_voxel[run_start + offsets])
+        if not self.return_grid_coord:
+            data_dict.pop("grid_coord")
+        return data_dict
 
 
 @TRANSFORMS.register_module()

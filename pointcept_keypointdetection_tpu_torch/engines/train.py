@@ -19,9 +19,12 @@ no autocast and no loss scaling.  The kernels take f32 and bf16, so "fp16"
 runs on the CPU only.  A top-level ``param_dicts`` is ignored, as JAX
 ignores it (it reads ``optimizer.param_dicts`` only, which the port refuses).
 
+``mix_prob`` > 0 mixes the training batches Mix3D-style (``datasets/
+collate.py``); the val batches are not mixed.
+
 Not ported (raise NotImplementedError): ``remat``,
-``gradient_accumulation_steps`` > 1, ``ema``, ``mix_prob`` > 0, model
-parallelism and ``MultiDatasetTrainer``.
+``gradient_accumulation_steps`` > 1, ``ema``, model parallelism and
+``MultiDatasetTrainer``.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ TRAINERS = Registry("trainers")
 AMP_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
 
 # config keys whose set values select paths the port does not have yet
-_UNPORTED = dict(remat=False, gradient_accumulation_steps=1, ema=None, mix_prob=0.0, model_parallel=1)
+_UNPORTED = dict(remat=False, gradient_accumulation_steps=1, ema=None, model_parallel=1)
 
 
 class TrainerBase:
@@ -129,7 +132,7 @@ class Trainer(TrainerBase):
         self.logger.info("=> Building train dataset & loader ...")
         self.train_loader = Dataloader(build_dataset(dict(cfg.data.train)), batch_size=cfg.batch_size,
                                        slot_size=cfg.slot_size, shuffle=True, drop_last=True, seed=seed,
-                                       num_workers=cfg.get("num_worker", 0))
+                                       num_workers=cfg.get("num_worker", 0), mix_prob=cfg.get("mix_prob") or 0.0)
         self.val_loader = None
         if cfg.get("evaluate", True) and "val" in cfg.data:
             self.val_loader = Dataloader(build_dataset(dict(cfg.data.val)),

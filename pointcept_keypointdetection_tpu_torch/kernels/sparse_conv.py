@@ -8,7 +8,9 @@ autograd Function that joins them.
 out[i] = sum_d feat_pad[idx[i, d]] @ W[d], where index N selects a zero row.
 On a CUDA tensor it launches the hand-written gather-GEMM kernel of
 ``csrc/sparse_conv.cu`` over the map's ``Rulebook``: rows sorted by their hit
-mask, only the busy row tiles and, per tile, only the offsets it hits; the
+mask (in words of 32 offsets, so one launch takes any K up to MAX_OFFSETS:
+the k=5 stem's 125 as the k=3 convs' 27), only the busy row tiles and, per
+tile, only the offsets it hits; the
 gathered rows and W tiles stream through a ``cp.async`` ring in shared
 memory into tensor-core products (bf16 ``mma.sync``; f32 as 3xTF32).  Where
 the busy tiles are too few to fill the card, the offsets are split across
@@ -50,7 +52,8 @@ rulebook_builds = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64  # rows of a rulebook tile: B3's output rows per block
 CHANNELS = 8  # the kernels take channels in multiples of this (16-byte rows of f32 and bf16 alike)
-MAX_OFFSETS = 31  # offsets a tile's hit mask (int32) can hold
+MAX_OFFSETS = 343  # offsets B3 takes (a 7^3 cube): its per-block offset list and index slab fit shared memory
+MASK_BITS = 32  # offsets per word of a tile's hit mask
 BLOCKS_PER_SM = 4  # blocks in flight per SM that the offset and row splits aim for
 DW_MIN_HITS = 256  # B4: hit pairs a row split holds at least (eight of the kernel's 32-pair steps)
 
@@ -61,24 +64,36 @@ class Rulebook(NamedTuple):
 
     Rows are sorted by their K-bit hit mask (bit d: the row has a neighbour
     at offset d), descending and stable, so rows with the same mask sit
-    together and rows with no hit come last.  ``perm[p]`` is the row at
+    together and rows with no hit come last; the mask is held in W =
+    ceil(K / 32) words of 32 bits, word w holding offsets [32w, 32w + 32),
+    and compared with the highest word first.  ``perm[p]`` is the row at
     sorted position p.  ``nbr[d, p] = idx[perm[p], d]``, offset-major so
     that a tile's neighbours at one offset are contiguous; positions past N
     hold N.  A tile is TILE sorted positions; the first ``busy_tiles`` hold
-    every row with a hit, and ``tile_mask[t]`` has bit d set when a row of
-    tile t hits offset d.
+    every row with a hit, and ``tile_mask[w * T + t]`` (T tiles; word-major,
+    so ``tile_mask[t]`` where K <= 32) has bit d set when a row of tile t
+    hits offset 32w + d.
     ``pair_in``/``pair_out`` list the hits offset by offset (feature row,
     output row), offset d's in ``[pair_start[d], pair_start[d + 1])``;
     ``hits`` holds each offset's count on the host."""
 
     perm: torch.Tensor  # int32 [N]
     nbr: torch.Tensor  # int32 [K, ceil(N / TILE) * TILE]
-    tile_mask: torch.Tensor  # int32 [ceil(N / TILE)]
+    tile_mask: torch.Tensor  # int32 [ceil(K / 32) * ceil(N / TILE)]
     pair_in: torch.Tensor  # int32 [H]
     pair_out: torch.Tensor  # int32 [H]
     pair_start: torch.Tensor  # int32 [K + 1]
     busy_tiles: int
     hits: Tuple[int, ...]
+
+
+def _mask_words(hit: torch.Tensor) -> torch.Tensor:
+    """int64 [R, ceil(K / 32)]: bit d of word w is ``hit[:, 32w + d]``."""
+    r, k = hit.shape
+    words = -(-k // MASK_BITS)
+    bits = torch.arange(MASK_BITS, device=hit.device, dtype=torch.int64)
+    padded = torch.nn.functional.pad(hit.to(torch.int64), (0, words * MASK_BITS - k)).reshape(r, words, MASK_BITS)
+    return (padded << bits).sum(2)
 
 
 def build_rulebook(idx: torch.Tensor) -> Rulebook:
@@ -95,16 +110,19 @@ def build_rulebook(idx: torch.Tensor) -> Rulebook:
     dev = idx.device
     tiles = -(-n // TILE)
     hit = idx < n
-    bits = torch.arange(k, device=dev, dtype=torch.int64)
-    mask = (hit.to(torch.int64) << bits).sum(1)
-    perm = torch.sort(mask, descending=True, stable=True).indices  # rows with no hit (mask 0) last
+    mask = _mask_words(hit)  # [N, W]
+    # descending by the mask, highest word first: stable sorts from the lowest word up compose into that order
+    perm = torch.sort(mask[:, 0], descending=True, stable=True).indices
+    for w in range(1, mask.shape[1]):
+        perm = perm[torch.sort(mask[perm, w], descending=True, stable=True).indices]
     pad = tiles * TILE - n
     nbr = torch.cat([idx[perm].t(), idx.new_full((k, pad), n)], 1)
     hit_sorted = torch.cat([hit[perm], hit.new_zeros((pad, k))]).reshape(tiles, TILE, k).any(1)
-    tile_mask = (hit_sorted.to(torch.int64) << bits).sum(1).to(torch.int32)
+    words = _mask_words(hit_sorted).t().reshape(-1)  # word-major
+    tile_mask = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)  # the bits as int32
     d, rows = hit.t().nonzero(as_tuple=True)  # offset-major, rows ascending within an offset
     counts = torch.bincount(d, minlength=k)
-    host = torch.cat([(mask != 0).sum().reshape(1), counts]).tolist()
+    host = torch.cat([hit.any(1).sum().reshape(1), counts]).tolist()
     rulebook_builds += 1
     return Rulebook(
         perm=perm.to(torch.int32),

@@ -1,7 +1,13 @@
-"""Segmentation wrapper: the counterpart of ``DefaultSegmentorV2``
-(``pointcept_keypointdetection_tpu/models/default.py:79-106``).
+"""Segmentation wrappers: the counterparts of ``DefaultSegmentor`` and
+``DefaultSegmentorV2`` (``pointcept_keypointdetection_tpu/models/default.py:
+27-45``, ``:79-106``).
 
-The backbone returns per-point features and the wrapper owns a linear seg
+``DefaultSegmentor``'s backbone returns the logits itself (SpUNet's head);
+with ``segment`` in the batch and ``criteria`` configured, ``loss`` is
+``criteria(logits, segment, valid=point.valid)``.  (JAX also sows the
+logits as ``backbone_feat`` for the SLAM front end, which is not ported.)
+
+``DefaultSegmentorV2``'s backbone returns per-point features and the wrapper owns a linear seg
 head.  The head is flax ``nn.Dense`` without a ``dtype``, so it computes in
 the promoted dtype of its input and its parameters: bf16 in the bench, where
 both are bf16, and f32 under ``amp``, where the features are bf16 and the
@@ -21,6 +27,24 @@ from torch import nn
 from .builder import MODELS, build_model
 from .losses import build_criteria
 from .structure import PointBatch
+
+
+@MODELS.register_module()
+class DefaultSegmentor(nn.Module):
+    """backbone -> ``{"seg_logits": [N, num_classes]}`` (+ ``loss``)."""
+
+    def __init__(self, backbone: Dict[str, Any], criteria: Sequence[Dict[str, Any]] = ()):
+        super().__init__()
+        self.backbone = build_model(dict(backbone))
+        self.criteria = build_criteria([dict(c) for c in criteria])
+
+    def forward(self, point: PointBatch, batch: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        logits = self.backbone(point, generator)
+        out = {"seg_logits": logits}
+        if batch is not None and "segment" in batch and self.criteria.criteria:
+            out["loss"] = self.criteria(logits, batch["segment"], valid=point.valid)
+        return out
 
 
 @MODELS.register_module()

@@ -1,8 +1,15 @@
 """Optimizer construction and gradient clipping.
 
 Counterparts of ``pointcept_keypointdetection_tpu/utils/optimizer.py``
-(optax) for the repo's training configs: AdamW over every parameter, and
-``clip_grad`` as optax's ``clip_by_global_norm``.
+(optax) for the repo's training configs: AdamW or SGD over every parameter,
+and ``clip_grad`` as optax's ``clip_by_global_norm``.
+
+``torch.optim.SGD(lr, momentum, weight_decay, nesterov, dampening=0)``
+computes what ``optax.chain(add_decayed_weights(wd), sgd(lr, momentum,
+nesterov))`` computes (`optimizer.py:15-20`): g' = g + wd * param; the trace
+t = g' + momentum * t, from t = 0 (torch's first buffer is g', the same);
+the update -lr * (g' + momentum * t) with nesterov, else -lr * t.  JAX's
+defaults: momentum 0.9, nesterov, no decay.
 
 ``torch.optim.AdamW`` computes what ``optax.adamw(lr, b1, b2, eps=1e-8,
 weight_decay)`` computes: with bias-corrected moments m^ and v^, the update
@@ -26,8 +33,15 @@ def build_optimizer(cfg: Dict[str, Any], params: Iterable[torch.nn.Parameter]) -
         if cfg.pop(key, None):
             raise NotImplementedError(f"optimizer {key} is not ported yet")
     lr = cfg.pop("lr", 1e-3)
+    if opt_type == "SGD":
+        momentum, nesterov = cfg.pop("momentum", 0.9), cfg.pop("nesterov", True)
+        weight_decay = cfg.pop("weight_decay", 0.0)
+        if cfg:
+            raise TypeError(f"SGD: unknown options {sorted(cfg)}")
+        return torch.optim.SGD(list(params), lr=lr, momentum=momentum, dampening=0.0, weight_decay=weight_decay,
+                               nesterov=nesterov)
     if opt_type != "AdamW":
-        raise NotImplementedError(f"optimizer {opt_type} is not ported yet (AdamW is)")
+        raise NotImplementedError(f"optimizer {opt_type} is not ported yet (AdamW and SGD are)")
     betas = tuple(cfg.pop("betas", (0.9, 0.999)))
     weight_decay = cfg.pop("weight_decay", 0.0)
     if cfg:

@@ -33,6 +33,17 @@ def CosineAnnealingLR(total_steps: int, base_lr: float, eta_min: float = 0.0) ->
 
 
 @SCHEDULERS.register_module()
+def PolyLR(total_steps: int, base_lr: float, power: float = 0.9) -> Callable[[int], float]:
+    """base_lr * clip(1 - step / (total_steps + 1), 0, 1) ** power (`scheduler.py:51-61`: the
+    reference's formula, not ``optax.polynomial_schedule``'s division by total_steps)."""
+
+    def schedule(step: int) -> float:
+        return base_lr * min(max(1.0 - step / (total_steps + 1), 0.0), 1.0) ** power
+
+    return schedule
+
+
+@SCHEDULERS.register_module()
 def OneCycleLR(total_steps: int, base_lr: float, max_lr: Optional[float] = None, pct_start: float = 0.3,
                div_factor: float = 25.0, final_div_factor: float = 1e4) -> Callable[[int], float]:
     """``optax.cosine_onecycle_schedule(total_steps, max_lr, pct_start, div_factor,

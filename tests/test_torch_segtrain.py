@@ -230,8 +230,18 @@ def test_synthetic_semseg_dataset_matches_jax(split):
         np.random.seed(i)
         _assert_same(got[i], want)
         assert want["feat"].shape[1] == 6  # coord + colour, the ScanNet recipe's in_channels
-    with pytest.raises(NotImplementedError):
-        SyntheticSemSegDataset(test_mode=True)
+    # test mode without a test_cfg (the transforms but Collect, which would drop the scene's name): one
+    # fragment per scene, every row of it (tests/test_torch_spunet.py holds the ScanNet recipe's test_cfg)
+    kw = dict(_semseg_kw(split), test_mode=True)
+    kw["transform"] = kw["transform"][:-1]
+    ref, got = JaxSemSeg(**kw), SyntheticSemSegDataset(**kw)
+    np.random.seed(0)
+    want = ref[0]
+    np.random.seed(0)
+    scene = got[0]
+    assert len(scene["fragment_list"]) == len(want["fragment_list"]) == 1 and scene["name"] == want["name"]
+    np.testing.assert_array_equal(scene["segment"], want["segment"])
+    _assert_same(scene["fragment_list"][0], want["fragment_list"][0])
 
 
 def pig_cloud(rng, n):
