@@ -16,5 +16,8 @@ transforms and datasets, ``SemSegEvaluator``) for the pigseg and ScanNet
 PT-v3m1 recipes; the committed keypoint checkpoint (``utils.checkpoint``,
 ``convert``); and SpUNet-v1m1 under ``DefaultSegmentor`` with
 ``engines.test.SemSegTester`` and the ``test`` CLI, ``PolyLR``, SGD and
-Mix3D, for ``exp/semseg_r3`` and the ScanNet SpUNet recipe.
+Mix3D, for ``exp/semseg_r3`` and the ScanNet SpUNet recipe; and PointGroup
+instance segmentation (``models.point_group``, ``ops.knn``, ``ops.cluster``,
+``InsSegEvaluator``, ``engines.test.InsSegTester``) for ``exp/insseg_r3``
+and the insseg recipes.
 """

@@ -3,10 +3,14 @@ training configs.
 
 The port's copies of ``pointcept_keypointdetection_tpu/datasets/
 transform.py``: ``Compose``, ``Collect``, ``Copy``, ``Update``,
-``NormalizeColor``, ``CenterShift``, ``RandomRotate``, ``RandomScale`` (a
-fixed scale [s, s], as the test-time aug lists use it, is one draw that
-returns s), ``RandomFlip``, ``RandomJitter``, ``GridSample`` (train and test
-mode, ``return_inverse``) and ``ShufflePoint``.  Their
+``NormalizeColor``, ``CenterShift``, ``RandomDropout``, ``RandomRotate``,
+``RandomScale`` (a fixed scale [s, s], as the test-time aug lists use it, is
+one draw that returns s), ``RandomFlip``, ``RandomJitter``,
+``ChromaticAutoContrast``, ``ChromaticTranslation``, ``ChromaticJitter``,
+``ElasticDistortion`` (scipy's ``ndimage.convolve`` and
+``RegularGridInterpolator``), ``GridSample`` (train and test mode,
+``return_inverse``), ``SphereCrop``, ``ShufflePoint`` and
+``InstanceParser``.  Their
 random draws come from the global ``np.random`` stream in the JAX package's
 order, and they keep its dtypes (a rotation or a scale turns f32
 coordinates into f64), so the same seed gives the same arrays.  The other
@@ -18,6 +22,8 @@ from __future__ import annotations
 import copy
 
 import numpy as np
+import scipy.interpolate
+import scipy.ndimage
 
 from ..ops.serialization import z_order_encode_np
 from ..utils.registry import Registry
@@ -128,6 +134,22 @@ class CenterShift:
         return data_dict
 
 
+@TRANSFORMS.register_module()
+class RandomDropout:
+    """With probability ``dropout_application_ratio``, keep a random ``1 - dropout_ratio`` of the rows."""
+
+    def __init__(self, dropout_ratio=0.2, dropout_application_ratio=0.5):
+        self.dropout_ratio = dropout_ratio
+        self.dropout_application_ratio = dropout_application_ratio
+
+    def __call__(self, data_dict):
+        if np.random.random() < self.dropout_application_ratio:
+            n = len(data_dict["coord"])
+            idx = np.random.choice(n, int(n * (1 - self.dropout_ratio)), replace=False)
+            data_dict = index_operator(data_dict, idx)
+        return data_dict
+
+
 def _rotation_matrix(axis: str, angle: float) -> np.ndarray:
     c, s = np.cos(angle), np.sin(angle)
     if axis == "x":
@@ -206,6 +228,85 @@ class RandomJitter:
         return data_dict
 
 
+@TRANSFORMS.register_module()
+class ChromaticAutoContrast:
+    """With probability ``p``, blend the colour with its per-channel stretch to [0, 255] (the blend
+    factor drawn where ``blend_factor`` is None)."""
+
+    def __init__(self, p=0.2, blend_factor=None):
+        self.p = p
+        self.blend_factor = blend_factor
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and np.random.random() < self.p:
+            color = data_dict["color"]
+            lo = np.min(color, axis=0, keepdims=True)
+            hi = np.max(color, axis=0, keepdims=True)
+            contrast = (color - lo) * (255 / np.maximum(hi - lo, 1e-6))
+            blend = self.blend_factor if self.blend_factor is not None else np.random.random()
+            data_dict["color"] = (1 - blend) * color + blend * contrast
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ChromaticTranslation:
+    """With probability ``p``, shift the colour by one uniform draw per channel within +-255 ``ratio``."""
+
+    def __init__(self, p=0.95, ratio=0.05):
+        self.p = p
+        self.ratio = ratio
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and np.random.random() < self.p:
+            tr = (np.random.random((1, 3)) - 0.5) * 255 * 2 * self.ratio
+            data_dict["color"] = np.clip(data_dict["color"] + tr, 0, 255)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ChromaticJitter:
+    """With probability ``p``, add normal noise of std 255 ``std`` to every colour value."""
+
+    def __init__(self, p=0.95, std=0.005):
+        self.p = p
+        self.std = std
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and np.random.random() < self.p:
+            noise = np.random.randn(data_dict["color"].shape[0], 3) * self.std * 255
+            data_dict["color"] = np.clip(data_dict["color"] + noise, 0, 255)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ElasticDistortion:
+    """For each (granularity, magnitude): a grid of normal noise at ``granularity`` spacing, blurred
+    twice by a 3-wide box along each axis, interpolated at every point and added times ``magnitude``."""
+
+    def __init__(self, distortion_params=None):
+        self.params = [[0.2, 0.4], [0.8, 1.6]] if distortion_params is None else distortion_params
+
+    @staticmethod
+    def _distort(coords, granularity, magnitude):
+        blurs = [np.ones((3, 1, 1, 1)) / 3, np.ones((1, 3, 1, 1)) / 3, np.ones((1, 1, 3, 1)) / 3]
+        coords_min = coords.min(0)
+        dims = ((coords - coords_min).max(0) // granularity).astype(int) + 3
+        noise = np.random.randn(*dims, 3).astype(np.float32)
+        for _ in range(2):
+            for blur in blurs:
+                noise = scipy.ndimage.convolve(noise, blur, mode="constant", cval=0)
+        ax = [np.linspace(d_min, d_max, d)
+              for d_min, d_max, d in zip(coords_min - granularity, coords_min + granularity * (dims - 2), dims)]
+        interp = scipy.interpolate.RegularGridInterpolator(ax, noise, bounds_error=False, fill_value=0)
+        return coords + interp(coords) * magnitude
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict and self.params is not None:
+            for granularity, magnitude in self.params:
+                data_dict["coord"] = self._distort(data_dict["coord"], granularity, magnitude)
+        return data_dict
+
+
 def _voxel_runs(grid_coord: np.ndarray):
     """(by_voxel, run_start, run_len, voxel_of_row): rows sorted voxel by voxel by their exact
     48-bit Morton key; voxel v owns sorted positions run_start[v] : +run_len[v], and row r lies in
@@ -272,6 +373,59 @@ class GridSample:
 
 
 @TRANSFORMS.register_module()
+class SphereCrop:
+    """Keep the ``point_max`` rows (or ``sample_rate`` of them) nearest a centre: a random row's
+    (``mode="random"``) or the middle row's."""
+
+    def __init__(self, point_max=80000, sample_rate=None, mode="random"):
+        if mode not in ("random", "center", "all"):
+            raise ValueError(f"SphereCrop: mode {mode!r}")
+        self.point_max = point_max
+        self.sample_rate = sample_rate
+        self.mode = mode
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"]
+        point_max = int(self.sample_rate * coord.shape[0]) if self.sample_rate is not None else self.point_max
+        if coord.shape[0] > point_max:
+            if self.mode == "random":
+                center = coord[np.random.randint(coord.shape[0])]
+            else:
+                center = coord[coord.shape[0] // 2]
+            data_dict = index_operator(data_dict, np.argsort(np.sum((coord - center) ** 2, axis=1))[:point_max])
+        return data_dict
+
+
+@TRANSFORMS.register_module()
 class ShufflePoint:
     def __call__(self, data_dict):
         return index_operator(data_dict, np.random.permutation(data_dict["coord"].shape[0]))
+
+
+@TRANSFORMS.register_module()
+class InstanceParser:
+    """Instance targets (`transform.py:575-607`): instances of an ignored class get
+    ``instance_ignore_index``, the rest are numbered 0.. in the order of their ids, and
+    ``instance_centroid`` (f32 [N, 3]) holds each point's instance mean (its own coord where it has
+    none); ``instance_centroid`` joins the keys that index-based transforms index."""
+
+    def __init__(self, segment_ignore_index=(-1, 0, 1), instance_ignore_index=-1):
+        self.segment_ignore_index = segment_ignore_index
+        self.instance_ignore_index = instance_ignore_index
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"]
+        instance = data_dict["instance"].copy()
+        instance[np.isin(data_dict["segment"], self.segment_ignore_index)] = self.instance_ignore_index
+        uniq = np.unique(instance[instance != self.instance_ignore_index])
+        out = np.full_like(instance, self.instance_ignore_index)
+        centroid = coord.copy()
+        for new, old in enumerate(uniq):
+            sel = instance == old
+            out[sel] = new
+            centroid[sel] = coord[sel].mean(0)
+        data_dict["instance"] = out
+        data_dict["instance_centroid"] = centroid.astype(np.float32)
+        if "instance_centroid" not in data_dict.get("index_valid_keys", ()):
+            data_dict.setdefault("index_valid_keys", list(VALID_INDEX_KEYS)).append("instance_centroid")
+        return data_dict

@@ -1,5 +1,6 @@
 """Trainer hooks: the registry, the lifecycle base and the hooks of the
-repo's offset-keypoint and segmentation training configs (counterparts of
+repo's offset-keypoint, segmentation and instance-segmentation training
+configs (counterparts of
 ``pointcept_keypointdetection_tpu/engines/hooks/``)."""
 
 from ...utils.registry import Registry
@@ -35,4 +36,4 @@ class HookBase:
         pass
 
 
-from . import evaluator, keypoint_evaluator, misc  # noqa: E402,F401  (register the hooks)
+from . import evaluator, insseg_evaluator, keypoint_evaluator, misc  # noqa: E402,F401  (register the hooks)

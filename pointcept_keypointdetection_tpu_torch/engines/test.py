@@ -14,8 +14,10 @@ and counted into the global mIoU, mAcc and allAcc.
 The weight: ``cfg.weight``, else ``<save_path>/model/model_best`` and then
 ``model_last``, each as the port's ``.pth`` or a JAX ``.ckpt``, read by
 ``convert.load_weights``.  The model runs on the card unless the caller
-asks for the CPU.  Not ported: the submission writers of the benchmarks
-(``save_submit`` raises) and the other testers.
+asks for the CPU.  One process: JAX's scene sharding and the all-gather
+of the per-scene association structures are the identity here.  Not
+ported: the submission writers of the benchmarks (``save_submit`` raises)
+and the other testers.
 """
 
 from __future__ import annotations
@@ -31,10 +33,13 @@ from ..convert import load_weights
 from ..datasets import build_dataset
 from ..datasets.collate import collate, pad_sample
 from ..models import build_model
+from ..models.point_group import cluster_proposals, proposals_from_labels
+from ..ops.knn import knn
 from ..utils.logger import get_root_logger
 from ..utils.misc import intersection_and_union
 from ..utils.registry import Registry
 from .common import build_point_batch, sample_to_device
+from .hooks.insseg_evaluator import OVERLAPS, associate_instances, evaluate_matches, summarize_ap
 
 TESTERS = Registry("testers")
 
@@ -158,3 +163,88 @@ class SemSegTester(TesterBase):
             logger.info(f"Class_{c} Result: iou/accuracy {iou_class[c]:.4f}/{acc_class[c]:.4f}")
         logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
         return dict(mIoU=m_iou, mAcc=m_acc, allAcc=all_acc)
+
+
+@TESTERS.register_module()
+class InsSegTester(TesterBase):
+    """Instance segmentation tester (`engines/test.py:474-616`): each whole scene padded to
+    ``capacity`` rows (its first ``capacity`` rows where it has more), one forward, the shifted
+    coordinates clustered into proposals scored by mean confidence (``models/point_group.py``), the
+    masks mapped to the raw points by their nearest voxel row where the scene kept ``origin_coord``,
+    and ScanNet-devkit AP over all scenes."""
+
+    def __init__(self, cfg, segment_ignore_index=(-1, 0, 1), instance_ignore_index=-1, cluster_thresh=0.05,
+                 cluster_min_points=50, cluster_propose_points=100, capacity=None, **kwargs):
+        self.num_classes = cfg.data.num_classes
+        self.segment_ignore_index = tuple(segment_ignore_index)
+        self.instance_ignore_index = instance_ignore_index
+        self.cluster_thresh = cluster_thresh
+        self.cluster_min_points = cluster_min_points
+        self.cluster_propose_points = cluster_propose_points
+        self.capacity = capacity or cfg.get("slot_size", 131072)
+        super().__init__(cfg, **kwargs)
+
+    @torch.no_grad()
+    def forward(self, tensors: Dict[str, torch.Tensor]):
+        """(predicted class int32, shift, softmax probabilities f32) of one padded scene, on the device."""
+        out = self.model(build_point_batch(tensors, 1), tensors)
+        probs = torch.softmax(out["seg_logits"].float(), -1)
+        return probs.argmax(-1).to(torch.int32), out["bias_pred"], probs
+
+    def test(self) -> Dict[str, float]:
+        logger = self.logger
+        logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        cap = self.capacity
+        scenes = []
+        for idx in range(len(self.test_dataset)):
+            start = time.time()
+            data_dict = dict(self.test_dataset[idx])
+            name = data_dict.pop("name", f"scene{idx}")
+            segment = np.asarray(data_dict["segment"]).reshape(-1)
+            instance = np.asarray(data_dict["instance"]).reshape(-1)
+            n = data_dict["coord"].shape[0]
+            if n > cap:
+                logger.warning(f"{name}: {n} pts > capacity {cap}; truncating")
+                for key, v in list(data_dict.items()):
+                    if isinstance(v, np.ndarray) and v.shape[:1] == (n,):
+                        data_dict[key] = v[:cap]
+                segment, instance = segment[:cap], instance[:cap]
+            batch = collate([_pad_fragment(dict(data_dict), cap)], cap)
+            tensors = sample_to_device(batch, self.device)
+            seg_pred, bias_pred, probs = self.forward(tensors)
+            valid = np.asarray(batch["valid"]).reshape(-1)
+            labels = cluster_proposals(tensors["coord"], seg_pred, bias_pred, tensors["valid"],
+                                       cluster_thresh=self.cluster_thresh,
+                                       segment_ignore_index=self.segment_ignore_index,
+                                       min_points=self.cluster_min_points)
+            masks, classes, scores = proposals_from_labels(labels, seg_pred.cpu().numpy(), probs.cpu().numpy(),
+                                                           propose_points=self.cluster_propose_points)
+            masks = masks[:, valid] if len(masks) else masks
+            if "origin_coord" in data_dict:
+                # 1-nn map-to-origin of the proposal masks (`test.py:575-590`)
+                origin = torch.from_numpy(np.asarray(data_dict["origin_coord"], np.float32)).to(self.device)
+                reverse, _ = knn(origin, tensors["coord"], 1, base_valid=tensors["valid"])
+                reverse = reverse.cpu().numpy().reshape(-1)
+                # masks are over valid rows; re-index via the dense->valid map
+                dense_to_valid = np.cumsum(valid) - 1
+                masks = masks[:, dense_to_valid[reverse]] if len(masks) else masks
+                segment = np.asarray(data_dict["origin_segment"]).reshape(-1)
+                instance = np.asarray(data_dict["origin_instance"]).reshape(-1)
+            gt, pr = associate_instances(classes, scores, masks, segment, instance, self.num_classes,
+                                         self.segment_ignore_index, self.instance_ignore_index)
+            scenes.append(dict(gt=gt, pr=pr))
+            logger.info(f"Test: {name} [{idx + 1}/{len(self.test_dataset)}] proposals {len(masks)} "
+                        f"Batch {time.time() - start:.3f}")
+        class_ids = [c for c in range(self.num_classes) if c not in self.segment_ignore_index]
+        ap = evaluate_matches(scenes, class_ids)
+        all_ap, ap50, ap25 = summarize_ap(ap)
+        logger.info(f"Val result: mAP/AP50/AP25 {all_ap:.4f}/{ap50:.4f}/{ap25:.4f}")
+        names = self.cfg.data.get("names")
+        main = ~np.isclose(OVERLAPS, 0.25)
+        for i, c in enumerate(class_ids):
+            label = names[c] if names else f"class_{c}"
+            with np.errstate(invalid="ignore"):
+                row_ap = np.nanmean(ap[i][main])
+            logger.info(f"Class_{c}-{label} Result: AP/AP50/AP25 {row_ap:.4f}/{ap[i][0]:.4f}/{ap[i][-1]:.4f}")
+        logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+        return dict(mAP=all_ap, AP50=ap50, AP25=ap25)

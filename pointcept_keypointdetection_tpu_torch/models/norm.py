@@ -48,18 +48,25 @@ class MaskedBatchNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Per-row LayerNorm, eps 1e-5, computed in f32 and cast back."""
+    """Per-row LayerNorm, computed in f32 and cast back.  The defaults are the JAX package's own
+    ``LayerNorm`` (`norm.py:59-73`, PTv3's): eps 1e-5, variance E[(x - E[x])^2].  Flax's
+    ``nn.LayerNorm`` (PointGroup's ``offset_norm``) is ``eps=1e-6, fast_variance=True``: variance
+    max(0, E[x^2] - E[x]^2)."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, fast_variance: bool = False):
         super().__init__()
         self.eps = eps
+        self.fast_variance = fast_variance
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         mean = xf.mean(-1, keepdim=True)
-        var = (xf - mean).square().mean(-1, keepdim=True)
+        if self.fast_variance:
+            var = (xf.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0.0)
+        else:
+            var = (xf - mean).square().mean(-1, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
 

@@ -57,7 +57,7 @@ _FLAX_PARENTS = {("cpe", "linear"): "Dense_0", ("cpe", "norm"): "LayerNorm_0", (
 
 
 def jax_variables_for(model: torch.nn.Module, rng: np.random.Generator) -> Dict:
-    """Seeded flax variables for the port's OffsetKeypoint or DefaultSegmentorV2
+    """Seeded flax variables for the port's OffsetKeypoint, DefaultSegmentorV2 or PointGroup
     PT-v3m1 ``model``, named as the JAX model names them, without tracing it.  Only for
     configs whose stages have one Block each (no ``nn.scan`` stacks);
     ``convert.py`` maps the result back onto the model's names."""
@@ -69,8 +69,8 @@ def jax_variables_for(model: torch.nn.Module, rng: np.random.Generator) -> Dict:
         *parents, leaf = name.split(".")
         if parents[0] == "head":
             path = [f"Dense_{int(parents[1]) // 2}"]
-        elif parents[0] == "seg_head":
-            path = ["seg_head"]
+        elif parents[0] in ("seg_head", "offset_fc", "offset_norm", "offset_head"):
+            path = [parents[0]]
         else:  # backbone.<...>
             path = ["PointTransformerV3_0"] + [_FLAX_PARENTS.get(pair, pair[1]) for pair in zip(parents, parents[1:])]
         shape = tuple(tensor.shape)
