@@ -7,8 +7,10 @@ through the tester, the ScanNet SpUNet recipe and the semseg-spunet-r3
 recipe trained) and PointGroup instance segmentation (the committed
 ``exp/insseg_r3`` through the InsSegTester and the ``test`` CLI, the insseg
 r3 recipe and both ScanNet PointGroup recipes trained with the
-InsSegEvaluator) on one NVIDIA GPU, and hold its hand-written kernels
-against their plain versions.
+InsSegEvaluator) and the global keypoint heads (``serve --task keypoint``,
+the KeypointPTv3Plus recipe and the other pig recipes trained through the
+fork's readers, ``infer_offset``) on one NVIDIA GPU, and hold its
+hand-written kernels against their plain versions.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -172,7 +174,35 @@ Phases, each fatal on failure:
      exp/insseg_r3's weights, the card's inputs clustered on both devices
      give equal labels; each device's own forward's labels differ only
      where a predicted class or a connecting kNN edge does (counted);
- 31. summary: the script's duration, the kernels line (per keypoint training
+ 31. keypoint serve: ``serve --task keypoint`` with ``configs/my_dataset/
+     keypoint_ptv3_plus.py`` (PT-v3plus: a bottleneck xCPE of K = 125 at
+     width 16 in every Block) and with ``keypoint_ptv3.py``, full width, slot
+     8192, seeded weights: 1 warm-up and 3 POSTs of ~20k-point clouds each (B1
+     and B3 once per Block, 5 rulebooks), one request under torch.profiler,
+     and each reply against the CPU port's within ``CPU_TOL`` x the cloud's
+     scale;
+ 32. KeypointPTv3Plus recipe as written (batch 8, slot 8192, AdamW under
+     cosine, Dropout, drop path 0.3) through ``KeypointDataset`` on seeded
+     N x 7 pig clouds the script writes in the reader's layout: its first
+     epoch (4 steps, B1 22, B2 22, B3 44, B4 22, 5 rulebooks each), the
+     KeypointEvaluator and the saver, the slots' fill, a profiled step, the
+     loss falling over 4 steps on a fixed batch;
+ 33. K = 125 kernels: B3 and B4 at Cin = Cout = 16 on PT-v3plus's maps of a
+     training batch and of a request, every level, f32 and bf16 against their
+     plain versions, bit for bit run to run, timed per step and per request
+     beside their plain versions, the gather + ``torch.matmul`` and the bound;
+ 34. card against CPU: one KeypointPTv3Plus step at the recipe's widths with
+     one Block per stage, batch 2 (the head's BatchNorm over one pooled row
+     would pass the backbone no gradient), the card on the CPU's side of each
+     ReLU tie;
+ 35. other recipes through their readers, the first epoch (4 steps) of each:
+     ``keypoint_sparse_unet.py`` (KeypointSparseUNet, B3 and B4 at K = 27 and
+     the K = 125 stem), ``ptv3_weight.py`` (PigBodyRegressor,
+     RegressionL1Loss, PigWeightDataset) and ``offset_keypoint_ptv3.py`` as
+     written (OffsetKeypointDataset with online offsets, its evaluator);
+ 36. ``infer_offset`` on the card over the written val clouds with the
+     offset recipe's trained weights;
+ 37. summary: the script's duration, the kernels line (per keypoint training
      step: launches, errors and times of the training levels; B1 and B3 also
      per bench forward in bf16; B1-B4 per pigseg step, ``pigseg_*``, and per
      amp step, ``amp_*``; per r3 step, ``r3_step_*``, and B1 and B3 per r3
@@ -181,7 +211,9 @@ Phases, each fatal on failure:
      B3 and B4 per launch at the K = 125 stem, ``k125_*`` and
      ``k125_bf16_*``; B3 and B4 per insseg r3 step, ``insseg_r3_step_*``,
      and per ScanNet PG-v1m1 step, ``insseg_scannet_*``; B1-B4 per PG-v1m2
-     amp step, ``insseg_amp_*``), then ``{"ok": true, "device": ...}`` last.
+     amp step, ``insseg_amp_*``; B1-B4 per KeypointPTv3Plus step,
+     ``kp_plus_step_*``, and B1 and B3 per request, ``kp_plus_request_*``),
+     then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -203,13 +235,13 @@ import torch
 import torch.nn.functional as F
 from scipy.special import expit
 
-from pointcept_keypointdetection_tpu_torch import bench, serve
+from pointcept_keypointdetection_tpu_torch import bench, infer_offset, serve
 from pointcept_keypointdetection_tpu_torch import test as test_cli
 from pointcept_keypointdetection_tpu_torch.convert import load_jax_checkpoint, load_weights
 from pointcept_keypointdetection_tpu_torch.datasets import build_dataset
 from pointcept_keypointdetection_tpu_torch.datasets.collate import collate
 from pointcept_keypointdetection_tpu_torch.datasets.dataloader import Dataloader
-from pointcept_keypointdetection_tpu_torch.datasets.synthetic import SyntheticKeypointDataset, body_cloud
+from pointcept_keypointdetection_tpu_torch.datasets.synthetic import SyntheticKeypointDataset, body_cloud, make_pig
 from pointcept_keypointdetection_tpu_torch.engines import test as test_module
 from pointcept_keypointdetection_tpu_torch.engines.common import build_point_batch, sample_to_device
 from pointcept_keypointdetection_tpu_torch.engines.hooks.insseg_evaluator import InsSegEvaluator
@@ -639,8 +671,8 @@ def training_maps(cfg) -> dict:
     model = build_model(dict(tcfg.model)).cuda().eval()
     make, maps = model.backbone._kernel_map, {}
 
-    def record(point, shuffled):
-        kmap = make(point, shuffled)
+    def record(*args, **kwargs):
+        kmap = make(*args, **kwargs)
         maps[kmap.neighbor_idx.shape[0]] = kmap.neighbor_idx
         return kmap
 
@@ -884,7 +916,8 @@ def step_tensors(model, batch_np, device: str, dtype: torch.dtype, label: str) -
     point = build_point_batch(batch, batch_np["num_samples"])
     point = point.replace(feat=point.feat.to(dtype))
     t0 = time.perf_counter()
-    out = model(point, batch)
+    # a fresh CPU generator of one seed: the keypoint head's Dropout draws the same masks on both devices
+    out = model(point, batch, torch.Generator().manual_seed(0))
     out["loss"].float().backward()
     print(f"{label}: one training step on {device} ({str(dtype)[6:]} features, {torch.get_num_threads()} CPU "
           f"threads): {(time.perf_counter() - t0) * 1e3:.1f} ms (host clock) {stamp()}")
@@ -1223,7 +1256,8 @@ def add_row(totals, name, row, launches) -> None:
 def phase_times(cfg, latencies, serve_maps, train_maps, errors, train):
     """Request latency, step time and each kernel's times; returns the kernels line, each row per
     training step: launches in one step of the trainer's run, errors at the training shapes, and
-    times summed over a step's launches at the training levels, conv kernels on the trainer's maps."""
+    times summed over a step's launches at the training levels, conv kernels on the trainer's maps;
+    and B1's and B3's sums per request."""
     print(f"request latency (host clock, POST to reply, {REQUESTS} requests): "
           f"median {statistics.median(latencies):.2f} ms, each {[round(x, 2) for x in latencies]} {stamp()}")
     timed = train["step_ms"][1:]  # the first step also warms up cuBLAS and the allocator
@@ -1296,7 +1330,7 @@ def phase_times(cfg, latencies, serve_maps, train_maps, errors, train):
               f"levels below; not in the sums above):")
         time_attention(rng, n, 4, 1024, dtype, backward=False)
         time_attention(rng, n, 4, 1024, dtype, backward=True)
-    return kernels
+    return kernels, per_request
 
 
 # ---- the segmentation slice --------------------------------------------------------------------------
@@ -1371,8 +1405,8 @@ def capture_maps(model, run, label: str) -> dict:
     """{N: kernel map} of every level of the forward that ``run()`` drives through ``model``."""
     make, maps = model.backbone._kernel_map, {}
 
-    def record(pt, shuffled):
-        kmap = make(pt, shuffled)
+    def record(*args, **kwargs):
+        kmap = make(*args, **kwargs)
         maps[kmap.neighbor_idx.shape[0]] = kmap.neighbor_idx
         return kmap
 
@@ -1382,7 +1416,8 @@ def capture_maps(model, run, label: str) -> dict:
     finally:
         del model.backbone._kernel_map
     for n, idx in sorted(maps.items(), reverse=True):
-        print(f"{label} map N={n}: {int((idx < n).sum())} hits, {int((idx[:, 13] < n).sum())} valid rows")
+        k = idx.shape[1]
+        print(f"{label} map N={n} K={k}: {int((idx < n).sum())} hits, {int((idx[:, k // 2] < n).sum())} valid rows")
     return maps
 
 
@@ -2533,6 +2568,291 @@ def phase_insseg_cluster_cpu() -> dict:
     return dict(moved=moved, classes=classes, edges=edges)
 
 
+
+# ---- the keypoint-head slice: KeypointPTv3 / KeypointPTv3Plus, the pig readers, the body-measure regressor --
+
+KP_PLUS_CONFIG = "configs/my_dataset/keypoint_ptv3_plus.py"
+KP_CONFIG = "configs/my_dataset/keypoint_ptv3.py"
+KP_SPUNET_CONFIG = "configs/my_dataset/keypoint_sparse_unet.py"
+WEIGHT_CONFIG = "configs/my_dataset/ptv3_weight.py"
+# points per written pig cloud: GridSample at 0.02 of the unit-radius cloud keeps 6,300-8,600 voxels (mean
+# ~7,500) of the 8192 slot, so most clouds fill 0.8-1.0 of it and a few are subsampled
+KP_CLOUD_POINTS = 11000
+KP_CLOUDS = {"train": 32, "val": 8}  # the recipes' batch 8: 4 steps per epoch, one val batch
+KP_CPU_BATCH = 2  # the card-vs-CPU step: the head's BatchNorm over one pooled row passes the backbone no gradient
+
+
+def write_keypoint_clouds(root: str, seed: int = 17) -> None:
+    """Seeded pig clouds in the pig readers' layout, per split: ``pointclouds/<ts>.npy`` (N x 7: xyz in mm,
+    normal, curvature), ``keypoints/<ts>_关键点坐标.npy`` (6 x 3 mm) and ``labels/<ts>.npy`` (7 body measures:
+    weight in kg, then six lengths in mm)."""
+    rng = np.random.default_rng(seed)
+    for split, count in KP_CLOUDS.items():
+        for sub in ("pointclouds", "keypoints", "labels"):
+            os.makedirs(os.path.join(root, split, sub))
+        for i in range(count):
+            coord, feat, kp = make_pig(rng, KP_CLOUD_POINTS)
+            ts = str(1_700_000_000 + i)
+            np.save(os.path.join(root, split, "pointclouds", f"{ts}.npy"), np.concatenate([coord, feat], 1))
+            np.save(os.path.join(root, split, "keypoints", f"{ts}_关键点坐标.npy"), kp)
+            np.save(os.path.join(root, split, "labels", f"{ts}.npy"),
+                    np.concatenate([rng.uniform(80, 130, 1), rng.uniform(200, 1300, 6)]).astype(np.float32))
+
+
+def recipe_config(config: str, root: str, save_path: str):
+    """A keypoint or body-measure recipe as written, its readers' ``data_root`` on the written clouds."""
+    cfg = Config.fromfile(config)
+    cfg.merge_from_dict({"save_path": save_path, "seed": 0, "data.train.data_root": root,
+                         "data.val.data_root": root})
+    return cfg
+
+
+def keypoint_backbone(cfg) -> dict:
+    return dict(cfg.model.get("backbone_conf") or cfg.model.backbone)
+
+
+def phase_kp_serve(config: str) -> dict:
+    """``serve --task keypoint`` with a global keypoint recipe at full width, slot 8192, seeded weights:
+    1 warm-up and 3 POSTs of body-like clouds (B1 and B3 once per Block, one rulebook per level), one
+    request under torch.profiler, and the card's reply against the CPU port's on each cloud with the
+    same weights and np.random seeded alike (the padding subsamples clouds past the slot), within
+    CPU_TOL x the cloud's scale (mm).  Returns the latencies, launches, profile and a request's maps."""
+    cfg = Config.fromfile(config)
+    predictor = serve.build_predictor("keypoint", cfg, None, cfg.slot_size, "cuda")
+    rng = np.random.default_rng(19)
+    clouds = [request_cloud(rng, CLOUD_POINTS) for _ in range(REQUESTS + 1)]
+    warm = clouds.pop()
+    predictor.predict(warm[:, :3], warm[:, 3:])
+    latencies, counts = phase_serve(predictor, clouds, cfg.model.backbone_conf, check_keypoints)
+    print(f"keypoint serve ({config}): request latency (host clock, POST to reply, slot {cfg.slot_size}, {REQUESTS} "
+          f"requests of {CLOUD_POINTS} points x 7): median {statistics.median(latencies):.2f} ms, each "
+          f"{[round(x, 2) for x in latencies]} {stamp()}")
+    cloud = clouds[0]
+    prof = profile_run(f"one keypoint request ({cfg.model.type})",
+                       lambda: predictor.predict(cloud[:, :3], cloud[:, 3:]), top=8)
+    maps = capture_maps(predictor.model, lambda: predictor.predict(cloud[:, :3], cloud[:, 3:]), "keypoint request")
+    state = {k: v.detach().cpu() for k, v in predictor.model.state_dict().items()}
+    cpu = serve.build_predictor("keypoint", cfg, state, cfg.slot_size, "cpu")
+    for i, c in enumerate(clouds):
+        replies = []
+        for p in (predictor, cpu):
+            np.random.seed(23 + i)
+            replies.append(p.predict(c[:, :3], c[:, 3:]))
+        scale = float(np.linalg.norm(c[:, :3] - c[:, :3].mean(0), axis=1).max())
+        err = float(np.abs(replies[0] - replies[1]).max())
+        print(f"keypoint request {i} ({cfg.model.type}), card vs cpu: max_abs_err={err:.3e} mm, tol {CPU_TOL:g} x "
+              f"scale {scale:.1f} mm = {CPU_TOL * scale:.3e} mm")
+        if not (np.isfinite(replies[0]).all() and err <= CPU_TOL * scale):
+            raise AssertionError(f"keypoint request {i}: card and CPU disagree")
+    del predictor, cpu
+    torch.cuda.empty_cache()
+    return dict(latencies=latencies, counts=counts, profile=prof, maps=maps)
+
+
+def phase_kp_train(label: str, cfg, expect=None, probe: bool = False) -> dict:
+    """A keypoint or body-measure recipe's trainer on the card through its own reader: its first epoch (4
+    steps of batch 8), each step's launches and rulebooks counted, every kernel input f32, then its
+    evaluator, if it has one, and the saver; the slots' fill by the first batch.  With ``probe`` also one
+    step under torch.profiler, the kernel maps of a batch of the recipe's data and PROBE_STEPS steps of a
+    fresh trainer on that batch, whose loss must fall."""
+    bb = keypoint_backbone(cfg)
+    trainer = Trainer(cfg, device="cuda")
+    total = len(trainer.train_loader) * trainer.max_epoch
+    trainer.max_epoch = 1  # the recipe's first epoch; the schedule keeps the whole run's length
+    batch = next(iter(trainer.train_loader))
+    fill = batch["valid"].reshape(batch["num_samples"], -1).mean(1)
+    print(f"{label}: {cfg.model.type} over {bb['type']}, {len(trainer.train_loader)} steps of batch {cfg.batch_size} "
+          f"per epoch from {cfg.data.train.type}, slot {cfg.slot_size} filled {fill.mean():.3f} on average "
+          f"({fill.min():.3f}-{fill.max():.3f}) by the first batch, {cfg.optimizer['type']} under "
+          f"{cfg.scheduler['type']} over {total} steps, {sum(p.numel() for p in trainer.model.parameters())} "
+          f"parameters")
+    spies, run_step = KernelDtypes(), trainer.run_step
+
+    def watched_step():
+        with spies:
+            run_step()
+
+    trainer.run_step = watched_step
+    run = counted_training(trainer, label, bb, expect=expect)
+    trainer.run_step = run_step
+    seen = {name: kinds for name, kinds in spies.seen.items() if kinds}
+    if any(kinds != {"float32"} for kinds in seen.values()):
+        raise AssertionError(f"{label}: expected every kernel in float32, got {seen}")
+    run["fill"] = float(fill.mean())
+    if trainer.val_loader is not None:
+        metric, name = trainer.comm_info.get("current_metric_value"), trainer.comm_info.get("current_metric_name")
+        if metric is None or not np.isfinite(metric) or metric > 0:
+            raise AssertionError(f"{label}: the evaluator gave no finite negated distance: {metric}")
+        print(f"{label}: the evaluator over {len(trainer.val_loader.dataset)} val clouds: {name} {metric:.4f} "
+              f"after {len(run['steps'])} steps {stamp()}")
+    run["save_path"] = cfg.save_path
+    if probe:
+        run["profile"] = profile_step(trainer, trainer.run_step)
+        model = trainer.model.eval()
+        with torch.no_grad():
+            run["maps"] = capture_maps(model, lambda: model(build_point_batch(sample_to_device(batch, "cuda"),
+                                                                              batch["num_samples"])), label)
+        del trainer, model
+        torch.cuda.empty_cache()
+        fresh = Trainer(cfg, device="cuda")
+        losses = []
+        for _ in range(PROBE_STEPS):
+            fresh.comm_info["input_dict"] = batch
+            fresh.run_step()
+            losses.append(fresh.comm_info["metrics"]["loss"])
+        print(f"{label}: {PROBE_STEPS} steps of a fresh trainer on one fixed batch: losses "
+              f"{[round(x, 5) for x in losses]} {stamp()}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{label}: the loss did not fall on a fixed batch: {losses}")
+        del fresh
+    else:
+        del trainer
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_kp_plus_kernels(cfg, step_maps: dict, request_maps: dict, step: dict, request: dict) -> dict:
+    """B3 and B4 at PT-v3plus's xCPE shape (K = 125, Cin = Cout = 16) on its maps at every level of a
+    training batch and of a request, in f32 and bf16 against their plain versions and bit for bit run to
+    run; each timed in f32 beside its plain version, the gather + torch.matmul and the bound, summed per
+    KeypointPTv3Plus step (B3 twice per Block: forward and input gradient; B4 once) and per request (B3
+    once per Block); each map's rulebook build timed (host clock and device).  The sums' launches are checked against one step's and one request's counts.
+    Returns {"step": sums, "request": sums, "errors": each kernel's largest f32 error}."""
+    rng = np.random.default_rng(29)
+    bb = keypoint_backbone(cfg)
+    width = bb["cpe_bottleneck"]
+    errors = dict.fromkeys(("subm_conv_fwd", "subm_conv_dw"), 0.0)
+    sums = {"step": {}, "request": {}}
+    launches = {"step": dict.fromkeys(errors, 0), "request": dict.fromkeys(errors, 0)}
+    blocks = {}
+    for n, _, _, _, depth in level_shapes(bb, cfg.slot_size):
+        blocks[n] = blocks.get(n, 0) + depth
+    for key, maps, per_block in (("step", step_maps, {"subm_conv_fwd": 2, "subm_conv_dw": 1}),
+                                 ("request", request_maps, {"subm_conv_fwd": 1})):
+        batch = cfg.batch_size if key == "step" else 1
+        for n, idx in sorted(maps.items(), reverse=True):
+            reps = blocks[n // batch]
+            if idx.shape[1] != bb["cpe_kernel_size"] ** 3:
+                raise AssertionError(f"{key} map N={n} has K={idx.shape[1]}")
+            for dtype in (torch.float32, torch.bfloat16):
+                found = {"subm_conv_fwd": check_conv(rng, idx, width, dtype)}
+                if key == "step":
+                    found["subm_conv_dw"] = check_conv_dw(rng, idx, width, dtype)
+                    check_conv_bits(rng, idx, width, dtype)
+                if dtype == torch.float32:
+                    for name, err in found.items():
+                        errors[name] = max(errors[name], err)
+            print(f"keypoint plus {key} level N={n} K={idx.shape[1]} Cin=Cout={width} f32 (x{reps} Blocks per {key}):")
+            for name, times in per_block.items():
+                row = time_conv(rng, idx, width, torch.float32, dw=name == "subm_conv_dw")
+                add_row(sums[key], name, row, times * reps)
+                launches[key][name] += times * reps
+        books = [time_rulebook(idx) for idx in maps.values()]
+        print(f"rulebook builds per KeypointPTv3Plus {key} ({len(books)} K = 125 maps): "
+              f"{sum(b['ms'] for b in books):.4f} ms (host clock), device {sum(b['device_ms'] for b in books):.4f} ms, "
+              f"bound {sum(b['bound_ms'] for b in books):.4f} ms {stamp()}")
+        for name, t in sums[key].items():
+            counted = (step if key == "step" else request)[name]
+            if launches[key][name] != counted:
+                raise AssertionError(f"keypoint plus {key}: {name} timed for {launches[key][name]} launches, the "
+                                     f"path made {counted}")
+            t["launches"] = counted
+            print(f"{name} per KeypointPTv3Plus {key} (f32, K=125, Cin=Cout={width}, sum over its {counted} launches): "
+                  f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms {stamp()}")
+    return dict(sums, errors=errors)
+
+
+def phase_kp_plus_cpu(cfg) -> dict:
+    """One KeypointPTv3Plus training step at the recipe's widths and slot, one Block per stage, no drop
+    path or order shuffling, batch KP_CPU_BATCH of its data (np.random seeded 5), card against CPU in f32
+    within TRAIN_CPU_TOL, the card on the CPU's side of each ReLU tie (the head's two ReLUs)."""
+    bb = keypoint_backbone(cfg)
+    model_cfg = dict(cfg.model)
+    model_cfg["backbone_conf"] = dict(bb, enc_depths=(1,) * len(bb["enc_depths"]),
+                                      dec_depths=(1,) * len(bb["dec_depths"]), drop_path=0.0, shuffle_orders=False)
+    np.random.seed(5)
+    ds = build_dataset(dict(cfg.data.train))
+    batch_np = collate([ds[i] for i in range(KP_CPU_BATCH)], cfg.slot_size, np.random)
+    return compare_step("keypoint plus", model_cfg, batch_np, torch.float32, TRAIN_CPU_TOL, relu_ties=True)
+
+
+def phase_infer_offset(root: str, weight: str) -> dict:
+    """The port's ``infer_offset`` on the card over the written val split with the offset-keypoint recipe's
+    weights from its trainer: K x 3 per cloud, finite errors per keypoint, the txt written, B1 and B3
+    launched once per Block per cloud."""
+    cfg = Config.fromfile(CONFIG)
+    out = os.path.join(root, "infer_offset.txt")
+    set_launch_counts_to_zero()
+    t0 = time.perf_counter()
+    errors = infer_offset.main(["--config-file", CONFIG, "--weight", weight, "--data-root", root, "--split", "val",
+                                "--method", "weighted", "--output", out])
+    seconds = time.perf_counter() - t0
+    clouds = KP_CLOUDS["val"]
+    blocks = sum(cfg.model.backbone_conf.enc_depths) + sum(cfg.model.backbone_conf.dec_depths)
+    counts = launch_counts()
+    lines = open(out).read().splitlines()
+    print(f"infer_offset over {clouds} val clouds: {seconds:.2f} s (host clock), launches {counts}; errors "
+          f"{None if errors is None else errors.shape} {stamp()}")
+    if errors is None or errors.shape != (clouds, 6) or not np.isfinite(errors).all() or len(lines) != clouds:
+        raise AssertionError(f"infer_offset: expected {clouds} x 6 finite errors and {clouds} lines")
+    if counts["patch_attention_fwd"] != blocks * clouds or counts["subm_conv_fwd"] != blocks * clouds:
+        raise AssertionError(f"infer_offset: expected B1 and B3 {blocks} times per cloud, got {counts}")
+    return dict(seconds=seconds, mean_mm=float(errors.mean()))
+
+
+def phase_keypoint_heads(kernels: list, per_request: dict) -> None:
+    """Phases 31-36: the keypoint heads' slice; adds ``kp_plus_step_*`` and ``kp_plus_request_*`` to the
+    kernels line (B1 and B2 per step and B1 per request at the same shapes as the offset-keypoint path's,
+    timed in phase 9)."""
+    served = {name: phase_kp_serve(config) for name, config in (("plus", KP_PLUS_CONFIG), ("ptv3", KP_CONFIG))}
+    with tempfile.TemporaryDirectory() as root:
+        write_keypoint_clouds(root)
+        cfg = recipe_config(KP_PLUS_CONFIG, root, os.path.join(root, "exp_plus"))
+        plus = phase_kp_train("keypoint plus train", cfg, probe=True)
+        step = plus["steps"][-1]
+        request = {k: v // REQUESTS for k, v in served["plus"]["counts"].items()}
+        conv = phase_kp_plus_kernels(cfg, plus.pop("maps"), served["plus"].pop("maps"), step, request)
+        phase_kp_plus_cpu(cfg)
+        others = {}
+        for key, config, expect in (
+                ("spunet", KP_SPUNET_CONFIG, spunet_expect(Config.fromfile(KP_SPUNET_CONFIG).model.backbone_conf,
+                                                           training=True)),
+                ("weight", WEIGHT_CONFIG, None), ("offset", CONFIG, None)):
+            others[key] = phase_kp_train(f"{key} recipe train", recipe_config(config, root, os.path.join(root, key)),
+                                         expect)
+        inferred = phase_infer_offset(root, os.path.join(others["offset"]["save_path"], "model", "model_last.pth"))
+    bound_by = lambda t: "operations" if t["t_ops"] >= t["t_bytes"] else "bytes"  # noqa: E731
+    for row in kernels:
+        name = row["name"]
+        if name in conv["step"]:
+            t, err, by = conv["step"][name], conv["errors"][name], bound_by(conv["step"][name])
+        else:  # B1, B2: the offset-keypoint step's shapes, timed in phase 9 (the row's own numbers)
+            t, err, by = row, row["max_abs_err"], row["bound_by"]
+        row.update({"kp_plus_step_launches": step[name], "kp_plus_step_max_abs_err": err,
+                    "kp_plus_step_ms": t["ms"], "kp_plus_step_plain_ms": t["plain_ms"],
+                    "kp_plus_step_library_ms": t["library_ms"], "kp_plus_step_bound_ms": t["bound_ms"],
+                    "kp_plus_step_bound_by": by})
+        t = conv["request"].get(name) or per_request.get(name)
+        if t is not None:
+            row.update({"kp_plus_request_launches": request[name], "kp_plus_request_ms": t["ms"],
+                        "kp_plus_request_plain_ms": t["plain_ms"], "kp_plus_request_library_ms": t["library_ms"],
+                        "kp_plus_request_bound_ms": t["bound_ms"], "kp_plus_request_bound_by": bound_by(t)})
+    for name, s in served.items():
+        print(f"keypoint serve {name}: request median {statistics.median(s['latencies']):.2f} ms, launches per "
+              f"request { {k: v // REQUESTS for k, v in s['counts'].items()} }; profiled request busy "
+              f"{s['profile']['busy_ms']:.2f} ms, idle share {s['profile']['idle_share']:.3f} {stamp()}")
+    for key, run in (("plus", plus), *others.items()):
+        prof = run.get("profile")
+        profiled = (f", profiled step busy {prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f}, "
+                    f"{prof['kernels']} kernels") if prof else ""
+        print(f"keypoint {key} recipe: step median {statistics.median(run['step_ms'][1:]):.2f} ms (host clock, steps "
+              f"2-{len(run['step_ms'])}), peak memory {run['peak_bytes'] / 2**30:.2f} GiB, slot fill {run['fill']:.3f}"
+              f"{profiled} {stamp()}")
+    print(f"infer_offset: {inferred['seconds']:.2f} s over {KP_CLOUDS['val']} clouds, mean error "
+          f"{inferred['mean_mm']:.2f} mm (seeded weights after 4 steps) {stamp()}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -2551,7 +2871,7 @@ def main() -> None:
     errors = phase_train_kernels(cfg, train_maps)
     train = phase_train(cfg)
     phase_train_cpu(cfg)
-    kernels = phase_times(cfg, latencies, maps, train_maps, errors, train)
+    kernels, per_request = phase_times(cfg, latencies, maps, train_maps, errors, train)
     phase_pigseg()
     run = phase_bench()
     sums = phase_bench_kernels(run.pop("maps"))
@@ -2666,6 +2986,7 @@ def main() -> None:
               f"{(t['cluster_s'] - t['knn_s']) * 1e3:.1f} ms {stamp()}")
     print(f"insseg_r3: anchor mAP/AP50/AP25 card {insseg['card']}, CPU {insseg['cpu']}; tester {insseg['seconds']:.2f} s "
           f"on the card {stamp()}")
+    phase_keypoint_heads(kernels, per_request)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s {stamp()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

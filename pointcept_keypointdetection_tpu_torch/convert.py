@@ -14,8 +14,12 @@ arrays (what ``flax`` holds, or a checkpoint reader returns).  The rules:
 * flax's automatic names map to the port's: the backbone
   ``PointTransformerV3_0`` is ``backbone`` (in ``OffsetKeypointPTv3`` and
   in ``DefaultSegmentorV2``, whose ``seg_head`` keeps its name), the head's ``Dense_{i}`` is
-  ``head.{2i}``, the xCPE's ``Dense_0`` / ``LayerNorm_0`` are ``linear`` /
-  ``norm``, the MLP's ``Dense_0`` / ``Dense_1`` are ``fc1`` / ``fc2``;
+  ``head.{2i}`` (the keypoint heads', ``PigBodyRegressor``'s beside its
+  ``cls_head``), ``KeypointModel``'s ``MaskedBatchNorm_0`` (with its
+  ``batch_stats``) is ``head.1``, the xCPE's ``Dense_0`` / ``LayerNorm_0`` are
+  ``linear`` / ``norm`` (PT-v3plus's bottleneck ``down``, ``weight``, ``bias``
+  and ``up`` keep their names), the MLP's ``Dense_0`` / ``Dense_1`` are
+  ``fc1`` / ``fc2``;
 * SpUNet (``models/sparse_unet.py``, in ``DefaultSegmentor``): ``SpUNet_0``
   is ``backbone``, and the names flax numbers in call order become list
   entries of the same number: its ``SubMConv_0`` is ``stem``,
@@ -94,6 +98,8 @@ def _rename(path: Tuple[str, ...]) -> Tuple[str, ...]:
             part = "backbone"
         elif i == 0 and part.startswith("Dense_"):
             part = f"head.{2 * int(part.split('_')[1])}"
+        elif i == 0 and part == "MaskedBatchNorm_0":  # KeypointModel's norm, between its Dense_0 and Dense_1
+            part = "head.1"
         elif (parent, part) in _PARENT_RENAMES:
             part = _PARENT_RENAMES[(parent, part)]
         elif numbered:

@@ -1,9 +1,17 @@
-"""Offset-keypoint validation after every epoch (counterpart of
-``OffsetKeypointEvaluator``, ``pointcept_keypointdetection_tpu/engines/
-hooks/keypoint_evaluator.py``).
+"""Keypoint validation after every epoch: the counterparts of
+``KeypointEvaluator`` and ``OffsetKeypointEvaluator``
+(``pointcept_keypointdetection_tpu/engines/hooks/keypoint_evaluator.py:
+26-73``, ``:114-196``).
 
-Per val sample: the ground-truth keypoint is the mean of (point + target
-offset) over the points whose target mask is set; the prediction is
+``KeypointEvaluator`` (the global-regression heads): per val sample and
+keypoint, the distance between ``keypoint_pred`` and the normalized target
+times the sample's ``scale``; it logs the mean per keypoint over the val set
+and their mean, and publishes minus that mean as the metric the checkpoint
+saver keeps the best of.
+
+``OffsetKeypointEvaluator``, per val sample: the ground-truth keypoint is
+the mean of (point + target offset) over the points whose target mask is
+set; the prediction is
 ``aggregate_keypoints`` over the valid rows, ``argmax`` (the point of
 highest confidence and its offset) and ``weighted`` (confidence-weighted
 mean above ``threshold``).  Distances are in mm (times the sample's scale);
@@ -23,6 +31,35 @@ from ..common import build_point_batch, sample_to_device
 from . import HOOKS, HookBase
 
 METHODS = ("argmax", "weighted")
+
+
+@HOOKS.register_module()
+class KeypointEvaluator(HookBase):
+    def after_epoch(self):
+        trainer = self.trainer
+        if trainer.val_loader is None:
+            return
+        model = trainer.model
+        dist_sum, count = 0.0, 0
+        model.eval()
+        with torch.no_grad():
+            for batch_np in trainer.val_loader:
+                ns = batch_np["num_samples"]
+                out = model(build_point_batch(sample_to_device(batch_np, trainer.device), ns))
+                pred = out["keypoint_pred"].float().cpu().numpy()  # [B, K, 3], normalized
+                dist = np.linalg.norm(pred - batch_np["keypoint"], axis=-1) * batch_np["scale"][:, None]
+                dist_sum = dist_sum + dist.sum(0)
+                count += ns
+        model.train()
+        logger = get_root_logger()
+        per_kp = np.atleast_1d(dist_sum / max(count, 1))
+        mean_dist = float(per_kp.mean())
+        for k, v in enumerate(per_kp):
+            logger.info(f"Keypoint_{k} mean distance: {v:.2f}")
+        logger.info(f"Val result: mean keypoint distance {mean_dist:.2f}")
+        trainer.storage.put_scalar("val/keypoint_dist", mean_dist)
+        trainer.comm_info["current_metric_value"] = -mean_dist  # the smallest distance wins
+        trainer.comm_info["current_metric_name"] = "neg_keypoint_dist"
 
 
 def keypoint_distances(coord, valid, offset_pred, mask_prob, offset_gt, mask_gt, scale, num_samples, threshold):

@@ -1,2 +1,2 @@
-from .keypoint import OffsetKeypointPredictor, aggregate_keypoints  # noqa: F401
+from .keypoint import KeypointPredictor, OffsetKeypointPredictor, aggregate_keypoints  # noqa: F401
 from .segment import SegmentPredictor  # noqa: F401

@@ -1,24 +1,29 @@
-"""Offset-keypoint inference on a raw cloud: preprocessing, forward, aggregation.
+"""Keypoint inference on a raw cloud: preprocessing, forward, aggregation.
 
-Counterpart of ``OffsetKeypointPredictor`` in ``pointcept_keypointdetection_
-tpu/inference/keypoint.py:92-180``, with the same preprocessing: normalize
-to the unit sphere, voxelize at ``grid_size`` keeping the first point of
-each voxel, prefix normalized coords to the features when the backbone
-expects ``in_channels = feat width + 3``, and subsample deterministically
-above ``slot_size`` before padding, so that the rows of the returned coords
-stay aligned with the model's per-row outputs.
+Counterparts of ``OffsetKeypointPredictor`` and ``KeypointPredictor`` in
+``pointcept_keypointdetection_tpu/inference/keypoint.py:92-199``, with the
+same preprocessing (``_PredictorBase._prepare``, `:83-119`): normalize to the
+unit sphere, voxelize at ``grid_size`` keeping the first point of each
+voxel, and prefix normalized coords to the features when the backbone
+expects ``in_channels = feat width + 3``.  Above ``slot_size`` voxels the
+offset predictor subsamples deterministically before padding, so that the
+rows of the returned coords stay aligned with the model's per-row outputs;
+the global-regression predictor, whose output is per cloud, leaves it to
+the padding, which draws from the global ``np.random`` as JAX's
+``pad_sample`` does.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 from scipy.special import expit
 
 from ..datasets.collate import collate
+from ..datasets.keypoint_dataset import normalize_cloud
 from ..engines.common import build_eval_model, build_point_batch, sample_to_device
 from ..ops.serialization import z_order_encode_np
 
@@ -69,16 +74,8 @@ def estimate_normals_curvature(coord: np.ndarray, k: int = 16) -> np.ndarray:
     return np.concatenate([normals, curvature[:, None]], axis=1).astype(np.float32)
 
 
-def normalize_cloud(coord: np.ndarray) -> Tuple[np.ndarray, np.ndarray, float]:
-    centroid = coord.mean(axis=0)
-    coord = coord - centroid
-    scale = float(np.sqrt((coord**2).sum(axis=1)).max())
-    scale = scale if scale > 1e-6 else 1.0
-    return (coord / scale).astype(np.float32), centroid.astype(np.float32), scale
-
-
-class OffsetKeypointPredictor:
-    """End-to-end offset-keypoint prediction on a raw cloud (mm or m units).
+class _PredictorBase:
+    """A keypoint model of ``model_cfg`` in eval mode, and the shared preprocessing.
 
     ``state_dict``: weights in the port's layout (see ``convert.py``); without
     it the weights are seeded from ``generator`` (seed 0 by default).  The
@@ -104,8 +101,8 @@ class OffsetKeypointPredictor:
         cin = bb.get("in_channels")
         return cin is not None and cin == feat_width + 3
 
-    def prepare(self, coord: np.ndarray, feat: np.ndarray, grid_size: float = 0.02):
-        """Normalize, voxelize and subsample a cloud -> (model-input rows, centroid, scale)."""
+    def _prepare(self, coord: np.ndarray, feat: np.ndarray, grid_size: float):
+        """Normalize and voxelize a cloud -> (model-input rows, centroid, scale)."""
         ncoord, centroid, scale = normalize_cloud(coord)
         grid = np.floor(ncoord / grid_size).astype(np.int64)
         grid -= grid.min(0)
@@ -114,7 +111,15 @@ class OffsetKeypointPredictor:
         f = feat[sel].astype(np.float32)
         if self._expects_coord_feat(f.shape[1]):
             f = np.concatenate([ncoord[sel].astype(np.float32), f], axis=1)
-        data = dict(coord=ncoord[sel], feat=f, grid_coord=grid[sel].astype(np.int32))
+        return dict(coord=ncoord[sel], feat=f, grid_coord=grid[sel].astype(np.int32)), centroid, scale
+
+
+class OffsetKeypointPredictor(_PredictorBase):
+    """End-to-end offset-keypoint prediction on a raw cloud (mm or m units)."""
+
+    def prepare(self, coord: np.ndarray, feat: np.ndarray, grid_size: float = 0.02):
+        """Normalize, voxelize and subsample a cloud -> (model-input rows, centroid, scale)."""
+        data, centroid, scale = self._prepare(coord, feat, grid_size)
         n = data["coord"].shape[0]
         if n > self.slot_size:
             # subsample here, deterministically, so data rows stay aligned with
@@ -151,3 +156,18 @@ class OffsetKeypointPredictor:
         mask_prob = expit(res["mask_logits"])
         kp = aggregate_keypoints(res["coord"], res["offset_pred"], mask_prob, method, threshold)
         return kp * res["scale"] + res["centroid"]
+
+
+class KeypointPredictor(_PredictorBase):
+    """End-to-end global-regression keypoint prediction on a raw cloud (``KeypointPTv3`` and its
+    aliases, `keypoint.py:183-199`)."""
+
+    def predict(self, coord: np.ndarray, feat: Optional[np.ndarray] = None, grid_size: float = 0.02) -> np.ndarray:
+        """Keypoints [K, 3] in the cloud's own units."""
+        if feat is None:
+            feat = estimate_normals_curvature(coord)
+        data, centroid, scale = self._prepare(coord, feat, grid_size)
+        batch = sample_to_device(collate([data], self.slot_size, np.random), self.device)
+        with self._lock, torch.inference_mode():
+            kp = self.model(build_point_batch(batch, 1))["keypoint_pred"][0].float().cpu().numpy()
+        return kp * scale + centroid

@@ -1,6 +1,7 @@
-"""Segmentation wrappers: the counterparts of ``DefaultSegmentor`` and
-``DefaultSegmentorV2`` (``pointcept_keypointdetection_tpu/models/default.py:
-27-45``, ``:79-106``).
+"""Segmentation wrappers and the pig body-measure regressor: the counterparts of
+``DefaultSegmentor``, ``DefaultSegmentorV2`` and ``PigBodyRegressor``
+(``pointcept_keypointdetection_tpu/models/default.py:27-45``, ``:79-106``,
+``:167-196``).
 
 ``DefaultSegmentor``'s backbone returns the logits itself (SpUNet's head);
 with ``segment`` in the batch and ``criteria`` configured, ``loss`` is
@@ -14,6 +15,13 @@ both are bf16, and f32 under ``amp``, where the features are bf16 and the
 parameters f32.  With targets (``segment``) in the batch and ``criteria``
 configured, ``loss`` is ``criteria(logits, segment, valid=point.valid)``;
 the losses compute in f32 whatever the logits' dtype.
+
+``PigBodyRegressor``'s backbone features are mean-pooled per sample (over
+the slot, as ``KeypointModel``'s) into Dense 256 -> ReLU -> Dense 128 ->
+ReLU -> ``cls_head`` (``num_measures`` outputs, in the labels' own units);
+with ``weight_label`` [B, num_measures] in the batch, ``loss`` is the
+criteria's (``RegressionL1Loss``) and ``mae_{i}`` the mean absolute error of
+measure i over the batch.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .builder import MODELS, build_model
+from .keypoint import PromotedDense, pooled_features
 from .losses import build_criteria
 from .structure import PointBatch
 
@@ -66,4 +75,30 @@ class DefaultSegmentorV2(nn.Module):
         out = {"seg_logits": logits}
         if batch is not None and "segment" in batch and self.criteria.criteria:
             out["loss"] = self.criteria(logits, batch["segment"], valid=point.valid)
+        return out
+
+
+@MODELS.register_module()
+class PigBodyRegressor(nn.Module):
+    """backbone -> mean pool per sample -> MLP -> ``measure_pred`` [B, num_measures]."""
+
+    def __init__(self, backbone: Dict[str, Any], num_measures: int = 7,
+                 criteria: Sequence[Dict[str, Any]] = (dict(type="RegressionL1Loss"),)):
+        super().__init__()
+        self.num_measures = num_measures
+        self.backbone = build_model(dict(backbone))
+        self.head = nn.Sequential(PromotedDense(self.backbone.out_channels, 256), nn.ReLU(), PromotedDense(256, 128),
+                                  nn.ReLU())
+        self.cls_head = PromotedDense(128, num_measures)
+        self.criteria = build_criteria([dict(c) for c in criteria])
+
+    def forward(self, point: PointBatch, batch: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        pred = self.cls_head(self.head(pooled_features(self.backbone(point, generator), point)))
+        out = {"measure_pred": pred}
+        if batch is not None and "weight_label" in batch:
+            target = batch["weight_label"].reshape(-1, self.num_measures)
+            out["loss"] = self.criteria(pred, target)
+            mae = (pred - target).abs().mean(0)
+            out.update({f"mae_{i}": mae[i] for i in range(self.num_measures)})
         return out

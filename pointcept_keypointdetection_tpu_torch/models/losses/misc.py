@@ -1,6 +1,7 @@
-"""Classification losses over padded point batches: the port's
-``CrossEntropyLoss`` (``pointcept_keypointdetection_tpu/models/losses/
-misc.py:31-64``).  The other losses of that file are not ported yet."""
+"""Losses over padded point batches: the port's ``CrossEntropyLoss`` and
+``RegressionL1Loss`` (``pointcept_keypointdetection_tpu/models/losses/
+misc.py:31-64``, ``:174-185``).  The other losses of that file are not ported
+yet."""
 
 from __future__ import annotations
 
@@ -49,3 +50,20 @@ class CrossEntropyLoss:
         else:
             loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
         return self.loss_weight * loss
+
+
+@LOSSES.register_module()
+class RegressionL1Loss:
+    """Mean absolute error of k-dim regression targets in f32 (the pig body measures), over the
+    rows that ``valid`` keeps (every row without it)."""
+
+    def __init__(self, loss_weight: float = 1.0):
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred: torch.Tensor, target: torch.Tensor, valid: Optional[torch.Tensor] = None):
+        loss = (pred.float() - target.float()).abs()
+        if valid is None:
+            mask = torch.ones_like(loss)
+        else:
+            mask = valid.reshape(valid.shape + (1,) * (loss.dim() - valid.dim())).expand_as(loss).to(loss.dtype)
+        return self.loss_weight * (loss * mask).sum() / mask.sum().clamp_min(1.0)

@@ -1,8 +1,8 @@
-"""Normalization and stochastic depth over masked point batches.
+"""Normalization, stochastic depth and dropout over masked point batches.
 
 Counterparts of ``pointcept_keypointdetection_tpu/models/norm.py``: batch
 statistics come from the valid rows only, and drop path keeps or drops whole
-samples (slots).
+samples (slots); ``Dropout`` is flax's, for the keypoint heads.
 """
 
 from __future__ import annotations
@@ -69,6 +69,28 @@ class LayerNorm(nn.Module):
             var = (xf - mean).square().mean(-1, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training each element is kept with probability 1 - rate, drawn
+    from the caller's generator (a CPU ``torch.Generator``), and scaled by 1 / (1 - rate); the
+    identity at eval or rate 0.  flax draws from its ``dropout`` rng stream, which this cannot
+    reproduce: the same rate, other draws."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("Dropout: training with rate > 0 needs a generator")
+        keep = torch.bernoulli(torch.full(x.shape, 1.0 - self.rate), generator=generator).bool()
+        if x.is_cuda:
+            keep = keep.pin_memory()
+        keep = keep.to(x.device, non_blocking=True)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class DropPath(nn.Module):

@@ -1,17 +1,25 @@
-"""PT-v3m1: serialized point transformer over fixed slots, eval and training.
+"""PT-v3m1 and PT-v3plus: serialized point transformer over fixed slots, eval and training.
 
 Counterpart of ``pointcept_keypointdetection_tpu/models/
 point_transformer_v3.py:439-721`` for the options the repo's PTv3 configs
 take: ``kmap_mode="direct"``; a k=5 cell-packed stem (the ``stem_kernel > 3``
 branch, `:509-532`) with a direct k=3 map for the stage-0 xCPE, or a k=3 stem
 (`:533-543`, `:554-555`) as a sparse conv, without bias, over that same k=3
-map and its rulebook (a k=1 stem over a map of its own); a fresh k=3 map per
+map and its rulebook (a k=1 stem over a map of its own); a fresh map per
 pooled stage that the decoder reuses (`:603-611`, `:689`),
 SerializedPooling / SerializedUnpooling, and per-block order cycling
 (``order_index % 4``).  flax ``nn.gelu`` is the tanh approximation, so is
 this one.  Module names follow the flax parameter tree, so ``convert.py``
 maps a JAX checkpoint name by name; blocks are ``enc{s}_block{i}`` whether
 or not JAX stacked them under ``nn.scan``.
+
+PT-v3plus (``configs/my_dataset/keypoint_ptv3_plus.py``) is the same class
+with ``cpe_kernel_size`` > 3 and ``cpe_bottleneck`` > 0: every xCPE is
+``down`` (Dense, no bias) -> a k^3 sparse conv at the bottleneck width ->
+``up`` (`:55-92`); the stem then runs cell-packed whatever its size, on
+cells of side 2^shift with 2^shift >= the larger radius, and the stage-0
+xCPE map is derived from those cells (``derive_kernel_map``, `:509-532`);
+each pooled stage builds its own k^3 map.
 
 Training (`:457-471`, `:569-570`): batch statistics in the stem and pooling
 norms, per-Block drop-path rates drop_path * i / (blocks - 1) over the
@@ -26,9 +34,9 @@ norms compute in f32 and cast back (``norm.py``); the xCPE conv and the stem
 take their weight cast to the features' dtype, accumulate in f32 and cast
 their output; patch attention computes in f32 and writes the features' dtype.
 
-Not ported (raise): enc_mode, PDNorm, LoRA, RPE, the bottleneck and
-large-kernel xCPE, chain kernel maps and the cell-select stem.  An even stem
-size raises, as JAX's ``SparseConvSpec.cube`` does.
+Not ported (raise): enc_mode, PDNorm, LoRA, RPE, chain kernel maps and the
+cell-select stem.  An even stem or xCPE size raises, as JAX's
+``SparseConvSpec.cube`` does.
 """
 
 from __future__ import annotations
@@ -45,12 +53,14 @@ from ..ops.segment import segment_mean, segment_reduce
 from ..ops.serialization import z_order_encode
 from ..ops.sparse import (
     KernelMap,
+    ParentCellIndex,
     SparseConvSpec,
     build_kernel_map,
     build_parent_index,
     build_voxel_index,
     cell_packed_apply,
     cell_packed_weight,
+    derive_kernel_map,
     sparse_conv,
 )
 from ..ops.voxelize import SlottedUniqueResult, slotted_unique
@@ -67,8 +77,6 @@ _UNPORTED_DEFAULTS = dict(
     enc_return_point=False,
     pdnorm_conditions=0,
     lora_rank=0,
-    cpe_kernel_size=3,
-    cpe_bottleneck=0,
     enable_rpe=False,
     kmap_mode="direct",
     stem_conv="cell_packed",
@@ -92,17 +100,21 @@ class Dense(nn.Linear):
 
 
 class SubMConvCPE(nn.Module):
-    """xCPE: SubMConv3d(k=3, bias) + Linear + LayerNorm (`point_transformer_v3.py:55-92`)."""
+    """xCPE: SubMConv3d(k, bias) + Linear + LayerNorm (`point_transformer_v3.py:55-92`); with
+    ``bottleneck`` > 0, PT-v3plus's: ``down`` (no bias) to the bottleneck width, the k^3 conv
+    there, ``up`` back, then the Linear and the LayerNorm."""
 
-    def __init__(self, in_channels: int, channels: int, kernel_volume: int = 27):
+    def __init__(self, in_channels: int, channels: int, kernel_volume: int = 27, bottleneck: int = 0):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(kernel_volume, in_channels, channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        self.down = Dense(in_channels, bottleneck, bias=False) if bottleneck else nn.Identity()
+        self.weight = nn.Parameter(torch.zeros(kernel_volume, bottleneck or in_channels, bottleneck or channels))
+        self.bias = nn.Parameter(torch.zeros(bottleneck or channels))
+        self.up = Dense(bottleneck, channels) if bottleneck else nn.Identity()
         self.linear = Dense(channels, channels)
         self.norm = LayerNorm(channels)
 
     def forward(self, feat: torch.Tensor, kmap: KernelMap) -> torch.Tensor:
-        return self.norm(self.linear(sparse_conv(feat, kmap, self.weight, self.bias)))
+        return self.norm(self.linear(self.up(sparse_conv(self.down(feat), kmap, self.weight, self.bias))))
 
 
 class SerializedAttention(nn.Module):
@@ -141,9 +153,10 @@ class Block(nn.Module):
     """xCPE + residual, pre-norm attention + residual, pre-norm MLP + residual."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int, mlp_ratio: float = 4.0,
-                 drop_path: float = 0.0, qkv_bias: bool = True, qk_scale: Optional[float] = None):
+                 drop_path: float = 0.0, qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 cpe_kernel_volume: int = 27, cpe_bottleneck: int = 0):
         super().__init__()
-        self.cpe = SubMConvCPE(channels, channels)
+        self.cpe = SubMConvCPE(channels, channels, cpe_kernel_volume, cpe_bottleneck)
         self.norm1 = LayerNorm(channels)
         self.attn = SerializedAttention(channels, num_heads, patch_size, qkv_bias, qk_scale)
         self.norm2 = LayerNorm(channels)
@@ -211,6 +224,7 @@ class SerializedUnpooling(nn.Module):
 
 
 @MODELS.register_module("PT-v3m1")
+@MODELS.register_module("PT-v3plus")
 class PointTransformerV3(nn.Module):
     def __init__(
         self,
@@ -234,6 +248,8 @@ class PointTransformerV3(nn.Module):
         stem_kernel: int = 5,
         bn_momentum: float = 0.01,
         kmap_depth: int = 16,
+        cpe_kernel_size: int = 3,
+        cpe_bottleneck: int = 0,
         **options,
     ):
         super().__init__()
@@ -244,8 +260,9 @@ class PointTransformerV3(nn.Module):
                 raise TypeError(f"PT-v3m1: unknown option {key!r}")
             if value != _UNPORTED_DEFAULTS[key]:
                 raise NotImplementedError(f"PT-v3m1: {key}={value!r} is not ported yet")
-        if stem_kernel < 1 or stem_kernel % 2 == 0:
-            raise ValueError(f"PT-v3m1: stem_kernel must be odd and positive, got {stem_kernel}")
+        for key, size in (("stem_kernel", stem_kernel), ("cpe_kernel_size", cpe_kernel_size)):
+            if size < 1 or size % 2 == 0:
+                raise ValueError(f"PT-v3m1: {key} must be odd and positive, got {size}")
         self.order = tuple(order)
         self.stride = tuple(stride)
         self.enc_depths = tuple(enc_depths)
@@ -253,12 +270,15 @@ class PointTransformerV3(nn.Module):
         self.enc_patch_size = tuple(enc_patch_size)
         self.slot_divisors = tuple(slot_divisors)
         self.stem_kernel = stem_kernel
+        self.cpe_kernel_size = cpe_kernel_size
+        # the stem runs on coarse cells where either kernel is larger than 3 (`:477-478`, `:509-532`)
+        self.cell_stem = stem_kernel > 3 or cpe_kernel_size > 3
         self.kmap_depth = kmap_depth
         self.shuffle_orders = shuffle_orders
         num_stages = len(enc_depths)
         self.out_channels = dec_channels[0] if num_stages > 1 else enc_channels[0]
 
-        stem_r = max(stem_kernel, 3) // 2
+        stem_r = max(stem_kernel, cpe_kernel_size) // 2
         self.stem_shift = max((stem_r - 1).bit_length(), 1)
         self.stem_weight = nn.Parameter(torch.zeros(stem_kernel**3, in_channels, enc_channels[0]))
         self.stem_norm = MaskedBatchNorm(enc_channels[0], momentum=bn_momentum)
@@ -271,7 +291,8 @@ class PointTransformerV3(nn.Module):
         def blocks(prefix, depth, channels, heads, patch):
             names = [f"{prefix}_block{i}" for i in range(depth)]
             for name in names:
-                self.add_module(name, Block(channels, heads, patch, mlp_ratio, next(rates), qkv_bias, qk_scale))
+                self.add_module(name, Block(channels, heads, patch, mlp_ratio, next(rates), qkv_bias, qk_scale,
+                                            cpe_kernel_size**3, cpe_bottleneck))
             return names
 
         self.enc_names: List[List[str]] = []
@@ -315,11 +336,17 @@ class PointTransformerV3(nn.Module):
             self._stem_packed = (key, cell_packed_weight(w, self.stem_shift, spec))
         return self._stem_packed[1]
 
-    def _kernel_map(self, point: PointBatch, shuffled: bool, kernel_size: int = 3) -> KernelMap:
+    def _kernel_map(self, point: PointBatch, shuffled: bool, kernel_size: Optional[int] = None,
+                    parent: Optional[ParentCellIndex] = None) -> KernelMap:
+        """A level's map of ``kernel_size`` (default: the xCPE's); read off the stem's coarse cells
+        where ``parent`` is given (stage 0 of PT-v3plus), else from a join of its own."""
+        spec = SparseConvSpec.cube(kernel_size or self.cpe_kernel_size)
+        if parent is not None:
+            return derive_kernel_map(parent, point.valid, spec)
         kd = self.kmap_depth
         batch = point.batch
         index = build_voxel_index(point.grid_coord, batch, point.valid, kd, self._reuse_perm(point, shuffled))
-        return build_kernel_map(index, point.grid_coord, batch, point.valid, SparseConvSpec.cube(kernel_size), kd)
+        return build_kernel_map(index, point.grid_coord, batch, point.valid, spec, kd)
 
     def forward(self, point: PointBatch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Features of the last decoder level.  ``generator`` (a CPU
@@ -335,13 +362,16 @@ class PointTransformerV3(nn.Module):
         point = point.serialize(orders=self.order, depth=_DEPTH, generator=shuffle_gen)
 
         # ---- embedding: stem conv + BN + GELU -------------------------------
-        kmap = self._kernel_map(point, shuffled)  # the stage-0 xCPE map
-        if self.stem_kernel > 3:  # k=5: on the coarse cells
+        if self.cell_stem:  # k=5 (or a k > 3 xCPE): on the coarse cells
             parent = build_parent_index(point.grid_coord, point.batch, point.valid, self.stem_shift,
                                         self.kmap_depth, precomputed_perm=self._reuse_perm(point, shuffled))
+            # the stage-0 xCPE map: a direct k=3 join, or a larger one read off the cells
+            kmap = self._kernel_map(point, shuffled, parent=parent if self.cpe_kernel_size > 3 else None)
             feat = cell_packed_apply(point.feat, parent, point.valid, self._stem_packed_weight())
         else:  # k=3 walks the xCPE's map and rulebook (JAX: kmap_cpe0 = kmap_stem)
-            kmap_stem = kmap if self.stem_kernel == 3 else self._kernel_map(point, shuffled, self.stem_kernel)
+            kmap = self._kernel_map(point, shuffled)  # the stage-0 xCPE map
+            same = self.stem_kernel == self.cpe_kernel_size
+            kmap_stem = kmap if same else self._kernel_map(point, shuffled, self.stem_kernel)
             feat = sparse_conv(point.feat, kmap_stem, self.stem_weight)
         x = point.replace(feat=gelu(self.stem_norm(feat, point.valid)))
 

@@ -187,6 +187,7 @@ class SpUNet(nn.Module):
         self.norms = nn.ModuleList(MaskedBatchNorm(c, momentum=bn_momentum) for c in norm_widths)
         self.downs, self.ups, self.blocks = nn.ModuleList(downs), nn.ModuleList(ups), nn.ModuleList(blocks)
         self.head = nn.Linear(width, num_classes) if num_classes > 0 else None
+        self.out_channels = num_classes if num_classes > 0 else width
 
     def forward(self, point: PointBatch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         stages = len(self.layers) // 2

@@ -8,7 +8,8 @@ Counterparts of ``pointcept_keypointdetection_tpu/ops/sparse.py``:
   exact join gives the same map for unique voxels, and here it is
   ``torch.searchsorted`` over the sorted int64 codes.
 * ``build_parent_index`` (`:246-326`): the 2^shift-coarse cell structure that
-  the k=5 stem runs on.
+  the k=5 stem runs on, and ``derive_kernel_map`` (`:329-371`), the stage-0
+  K = 125 map of PT-v3plus's xCPE read off it.
 * ``cell_packed_conv`` (`:412-481`): the k=5 stem as a gather of 27
   neighbor cells and one contraction with a parity-expanded weight.  Plain
   XLA in JAX, so plain PyTorch here.
@@ -182,6 +183,46 @@ def build_parent_index(
         cell_of=cell_of,
         parity=parity,
     )
+
+
+@functools.lru_cache(maxsize=None)
+def _derive_luts(shift: int, spec: SparseConvSpec) -> Tuple[np.ndarray, np.ndarray]:
+    """(parity, offset slot) -> the coarse neighbour column (of 27) and the subposition that the
+    fine offset lands on."""
+    side = 1 << shift
+    nsub = side**3
+    offs = np.asarray(spec.offsets, np.int64)
+    if np.abs(offs).max() > side:
+        raise ValueError(f"kernel radius {int(np.abs(offs).max())} exceeds the cell side {side}")
+    ps = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(nsub, 3)
+    q = ps[:, None, :] + offs[None, :, :]  # [nsub, K, 3]
+    cj = q >> shift  # floor division, in [-1, 1]
+    s = q & (side - 1)
+    cell_col = ((cj[..., 0] + 1) * 3 + (cj[..., 1] + 1)) * 3 + (cj[..., 2] + 1)
+    sub_idx = (s[..., 0] * side + s[..., 1]) * side + s[..., 2]
+    return cell_col, sub_idx
+
+
+@functools.lru_cache(maxsize=None)
+def _derive_luts_on(shift: int, spec: SparseConvSpec, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    with torch.inference_mode(False):  # normal tensors, as _cell_packed_slots_on's
+        return tuple(torch.as_tensor(a, device=device) for a in _derive_luts(shift, spec))
+
+
+def derive_kernel_map(parent: ParentCellIndex, valid: torch.Tensor, spec: SparseConvSpec) -> KernelMap:
+    """A fine-resolution kernel map read off the coarse-cell structure (`sparse.py:329-371`).
+
+    Voxel q at cell parity p with offset d lands at (cell(q) + cj) * 2^shift + s, where (cj, s)
+    are fixed functions of (p, d): two gathers through [nsub, K] tables, exact for any offset
+    with max |d| <= 2^shift.  Equal, index for index, to ``build_kernel_map`` of ``spec``."""
+    n = parent.cell_of.shape[0]
+    nsub = parent.cell_table.shape[1]
+    cell_col, sub_idx = _derive_luts_on(parent.shift, spec, valid.device)
+    own_cells = parent.cell_kmap[parent.cell_of.clamp(max=n - 1)].to(torch.int64)  # [N, 27]
+    ncell = own_cells.gather(1, cell_col[parent.parity])  # [N, K] in [0, N]
+    neighbor = parent.cell_table.reshape(-1)[ncell.clamp(max=n) * nsub + sub_idx[parent.parity]]
+    keep = valid[:, None] & (parent.cell_of[:, None] < n)
+    return KernelMap(neighbor_idx=torch.where(keep, neighbor, n).to(torch.int32))
 
 
 @functools.lru_cache(maxsize=None)

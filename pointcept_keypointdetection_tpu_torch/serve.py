@@ -3,14 +3,17 @@
 The contract of ``tools/serve.py:113-167``: ``POST /predict`` with a raw
 float32 body of N x ``cols`` values (xyz, then features; ``?cols=`` and
 ``?method=argmax|weighted`` in the query) answers with raw float32: the
-keypoints, K x 3, for ``offset_keypoint``; one label per input point, N,
-for ``pigseg`` (``inference/segment.py``; without feature columns the
-normals and curvature are estimated).  ``keypoint`` raises
-NotImplementedError.
+keypoints, K x 3 in the input's units, for ``offset_keypoint`` and for
+``keypoint`` (the global-regression heads, ``KeypointPTv3`` and its
+aliases, which take no ``method``); one label per input point, N, for
+``pigseg`` (``inference/segment.py``).  Without feature columns the normals
+and curvature are estimated.
 
 Usage:
   python -m pointcept_keypointdetection_tpu_torch.serve --task offset_keypoint \
       --config-file configs/my_dataset/offset_keypoint_ptv3.py --port 8000 [--device cuda]
+  python -m pointcept_keypointdetection_tpu_torch.serve --task keypoint \
+      --config-file configs/my_dataset/keypoint_ptv3_plus.py --port 8000 [--device cuda]
   python -m pointcept_keypointdetection_tpu_torch.serve --task pigseg \
       --config-file configs/pigseg/semseg-ptv3-v1m1-0-base.py --slot-size 32768 [--device cuda]
 
@@ -25,6 +28,7 @@ content).  Without it the weights are seeded (seed 0).
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -34,26 +38,25 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from .convert import load_weights
-from .inference.keypoint import OffsetKeypointPredictor
+from .inference.keypoint import KeypointPredictor, OffsetKeypointPredictor
 from .inference.segment import SegmentPredictor
 from .utils.config import Config
 
-TASKS = ("keypoint", "offset_keypoint", "pigseg")
-Predictor = Union[OffsetKeypointPredictor, SegmentPredictor]
+PREDICTORS = {"keypoint": KeypointPredictor, "offset_keypoint": OffsetKeypointPredictor, "pigseg": SegmentPredictor}
+TASKS = tuple(PREDICTORS)
+Predictor = Union[KeypointPredictor, OffsetKeypointPredictor, SegmentPredictor]
 
 
 def build_predictor(task: str, cfg: Config, state_dict=None, slot_size: int = 8192,
                     device: str = "cuda") -> Predictor:
-    if task == "offset_keypoint":
-        return OffsetKeypointPredictor(dict(cfg.model), state_dict, slot_size, device)
-    if task == "pigseg":
-        return SegmentPredictor(dict(cfg.model), state_dict, slot_size, device)
-    if task in TASKS:
-        raise NotImplementedError(f"task {task!r} is not ported to PyTorch yet")
-    raise ValueError(f"unknown task {task!r}")
+    if task not in PREDICTORS:
+        raise ValueError(f"unknown task {task!r}")
+    return PREDICTORS[task](dict(cfg.model), state_dict, slot_size, device)
 
 
 def make_handler(predictor: Predictor, cols: int):
+    takes_method = "method" in inspect.signature(predictor.predict).parameters
+
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code: int, payload: bytes, content_type: str) -> None:
             self.send_response(code)
@@ -79,7 +82,8 @@ def make_handler(predictor: Predictor, cols: int):
             coord = raw[:, :3].copy()
             feat = raw[:, 3:].copy() if ncols > 3 else None
             try:
-                result = predictor.predict(coord, feat, method=method)
+                options = {"method": method} if takes_method else {}
+                result = predictor.predict(coord, feat, **options)
             except Exception as e:  # the server keeps serving; the client gets the error
                 traceback.print_exc()
                 self._reply(500, json.dumps({"error": str(e)}).encode(), "application/json")

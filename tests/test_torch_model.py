@@ -181,8 +181,8 @@ def test_server_answers_like_the_predictor(case):
         thread.join(timeout=10)
     assert not thread.is_alive()
     np.testing.assert_allclose(got, predictor.predict(case["coord"], case["feat"], method="weighted"), rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        serve.build_predictor("keypoint", None)
+    with pytest.raises(ValueError, match="unknown task"):
+        serve.build_predictor("segment", None)
 
 
 def test_port_imports_no_jax():

@@ -57,8 +57,9 @@ _FLAX_PARENTS = {("cpe", "linear"): "Dense_0", ("cpe", "norm"): "LayerNorm_0", (
 
 
 def jax_variables_for(model: torch.nn.Module, rng: np.random.Generator) -> Dict:
-    """Seeded flax variables for the port's OffsetKeypoint, DefaultSegmentorV2 or PointGroup
-    PT-v3m1 ``model``, named as the JAX model names them, without tracing it.  Only for
+    """Seeded flax variables for the port's OffsetKeypoint, Keypoint, VoteKeypoint,
+    PigBodyRegressor, DefaultSegmentorV2 or PointGroup PT-v3m1 or PT-v3plus ``model``, named as
+    the JAX model names them, without tracing it.  Only for
     configs whose stages have one Block each (no ``nn.scan`` stacks);
     ``convert.py`` maps the result back onto the model's names."""
     from flax.traverse_util import unflatten_dict
@@ -67,9 +68,11 @@ def jax_variables_for(model: torch.nn.Module, rng: np.random.Generator) -> Dict:
     flat = {}
     for name, tensor in list(model.named_parameters()) + list(model.named_buffers()):
         *parents, leaf = name.split(".")
-        if parents[0] == "head":
+        if parents[:2] == ["head", "1"]:  # KeypointModel's norm between its Dense_0 and Dense_1
+            path = ["MaskedBatchNorm_0"]
+        elif parents[0] == "head":
             path = [f"Dense_{int(parents[1]) // 2}"]
-        elif parents[0] in ("seg_head", "offset_fc", "offset_norm", "offset_head"):
+        elif parents[0] in ("seg_head", "offset_fc", "offset_norm", "offset_head", "cls_head"):
             path = [parents[0]]
         else:  # backbone.<...>
             path = ["PointTransformerV3_0"] + [_FLAX_PARENTS.get(pair, pair[1]) for pair in zip(parents, parents[1:])]
