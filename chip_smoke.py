@@ -7,10 +7,13 @@ through the tester, the ScanNet SpUNet recipe and the semseg-spunet-r3
 recipe trained) and PointGroup instance segmentation (the committed
 ``exp/insseg_r3`` through the InsSegTester and the ``test`` CLI, the insseg
 r3 recipe and both ScanNet PointGroup recipes trained with the
-InsSegEvaluator) and the global keypoint heads (``serve --task keypoint``,
+InsSegEvaluator), the global keypoint heads (``serve --task keypoint``,
 the KeypointPTv3Plus recipe and the other pig recipes trained through the
-fork's readers, ``infer_offset``) on one NVIDIA GPU, and hold its
-hand-written kernels against their plain versions.
+fork's readers, ``infer_offset``), and OctFormer and Swin3D (served and
+trained as the fork's configs write them) with the pig users' four tools
+(``inference_split``, ``batch_infer_export_txt``, ``infer_npy``,
+``evaluate_all_splits``) on one NVIDIA GPU, and hold its hand-written
+kernels against their plain versions.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -202,7 +205,32 @@ Phases, each fatal on failure:
      written (OffsetKeypointDataset with online offsets, its evaluator);
  36. ``infer_offset`` on the card over the written val clouds with the
      offset recipe's trained weights;
- 37. summary: the script's duration, the kernels line (per keypoint training
+ 37. OctFormer and Swin3D serve: ``serve --task keypoint`` with
+     ``configs/my_dataset/keypoint_octformer.py`` (B3 12 per request at the
+     CPE's K = 27, 4 rulebooks, no B1) and ``serve --task offset_keypoint``
+     with ``offset_keypoint_swin3d.py`` (no kernel launch: its windowed
+     attention with the cRSE is plain torch), full width, slot 8192, seeded
+     weights, 1 warm-up and 3 POSTs of ~20k-point clouds each, one request
+     of each under torch.profiler, each reply against the CPU port's
+     (``CPU_TOL`` x the cloud's scale; the offset head through phase 5's
+     check);
+ 38. OctFormer and Swin3D trained: ``keypoint_octformer.py`` (B3 24, B4 12, 4
+     rulebooks a step) and ``keypoint_swin3d_plus.py`` (KeypointSwin3DVote,
+     no kernel) as written through ``KeypointDataset`` on the written pig
+     clouds, as phase 32; then one step of each card against CPU at batch 2
+     with ``CPU_STEP_DEPTHS`` (the dilated and the shifted Block run);
+ 39. OctFormer kernels: B3 and B4 at K = 27, Cin = Cout = 96, 192, 384 on the
+     maps of a training batch and of a request at every level, f32 against
+     their plain versions, bit for bit run to run, timed per step and per
+     request beside the gather + ``torch.matmul`` and the bound;
+ 40. the pig users' tools, each on the card and with ``--device cpu``, outputs
+     compared and wall times printed: ``inference_split`` over the written
+     val split with ``keypoint_octformer.py``; ``batch_infer_export_txt``
+     over bare-xyz ``.npy`` and ascii ``.pcd`` scans with
+     ``offset_keypoint_swin3d.py``; ``infer_npy`` on a ~30k-point pig scene
+     with ``semseg-octformer-v1m1-0-base.py``; ``evaluate_all_splits`` over
+     ``semseg-spunet-r3-test.py`` with ``exp/semseg_r3`` (train and val);
+ 41. summary: the script's duration, the kernels line (per keypoint training
      step: launches, errors and times of the training levels; B1 and B3 also
      per bench forward in bf16; B1-B4 per pigseg step, ``pigseg_*``, and per
      amp step, ``amp_*``; per r3 step, ``r3_step_*``, and B1 and B3 per r3
@@ -212,14 +240,16 @@ Phases, each fatal on failure:
      ``k125_bf16_*``; B3 and B4 per insseg r3 step, ``insseg_r3_step_*``,
      and per ScanNet PG-v1m1 step, ``insseg_scannet_*``; B1-B4 per PG-v1m2
      amp step, ``insseg_amp_*``; B1-B4 per KeypointPTv3Plus step,
-     ``kp_plus_step_*``, and B1 and B3 per request, ``kp_plus_request_*``),
-     then ``{"ok": true, "device": ...}`` last.
+     ``kp_plus_step_*``, and B1 and B3 per request, ``kp_plus_request_*``;
+     B3 and B4 per OctFormer step, ``octformer_step_*``, and B3 per request,
+     ``octformer_request_*``), then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import glob
 import json
 import os
 import re
@@ -235,7 +265,15 @@ import torch
 import torch.nn.functional as F
 from scipy.special import expit
 
-from pointcept_keypointdetection_tpu_torch import bench, infer_offset, serve
+from pointcept_keypointdetection_tpu_torch import (
+    batch_infer_export_txt,
+    bench,
+    evaluate_all_splits,
+    infer_npy,
+    infer_offset,
+    inference_split,
+    serve,
+)
 from pointcept_keypointdetection_tpu_torch import test as test_cli
 from pointcept_keypointdetection_tpu_torch.convert import load_jax_checkpoint, load_weights
 from pointcept_keypointdetection_tpu_torch.datasets import build_dataset
@@ -262,6 +300,7 @@ from pointcept_keypointdetection_tpu_torch.models import sparse_unet as spunet_m
 from pointcept_keypointdetection_tpu_torch.models.losses import build_criteria
 from pointcept_keypointdetection_tpu_torch.ops import cluster as cluster_module
 from pointcept_keypointdetection_tpu_torch.ops import sparse as sp
+from pointcept_keypointdetection_tpu_torch.ops.segment import segment_mean, segment_mean_in_order, segment_sum_in_order
 from pointcept_keypointdetection_tpu_torch.ops.serialization import z_order_encode_np
 from pointcept_keypointdetection_tpu_torch.utils.checkpoint import load_checkpoint
 from pointcept_keypointdetection_tpu_torch.utils.config import Config
@@ -572,11 +611,13 @@ def phase_kernels(cfg):
     return maps
 
 
-def phase_serve(predictor, clouds, backbone, check_reply):
+def phase_serve(predictor, clouds, backbone, check_reply, expect=None):
     """POSTs through the server, one per cloud; returns the latencies and the launch counts of the run.
-    ``check_reply(i, cloud, reply)`` raises on a wrong reply."""
-    per_request = sum(backbone.enc_depths) + sum(backbone.dec_depths)
-    expect = (per_request, per_request + stem_convs(backbone), len(backbone.enc_depths))  # B1, B3, rulebooks
+    ``check_reply(i, cloud, reply)`` raises on a wrong reply.  ``expect``: (B1, B3, rulebooks) per
+    request, by default a PT-v3 backbone's (one of each per Block, one rulebook per level)."""
+    if expect is None:
+        per_request = sum(backbone.enc_depths) + sum(backbone.dec_depths)
+        expect = (per_request, per_request + stem_convs(backbone), len(backbone.enc_depths))
     server = serve.make_server(predictor, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -615,11 +656,13 @@ def check_keypoints(i, cloud, reply) -> None:
         raise AssertionError(f"request {i}: expected 6 x 3 finite floats, got {reply}")
 
 
-def phase_cpu(cfg, predictor, cloud) -> None:
+def phase_cpu(cfg, predictor, cloud, cpu=None) -> None:
     """The card's and the CPU's outputs on one request; an argmax keypoint may differ only where
-    the CPU's two best logits are closer than twice the measured logit error (a tie it can flip)."""
-    state = {k: v.detach().cpu() for k, v in predictor.model.state_dict().items()}
-    cpu = OffsetKeypointPredictor(dict(cfg.model), state, cfg.slot_size, device="cpu")
+    the CPU's two best logits are closer than twice the measured logit error (a tie it can flip).
+    ``cpu``: the CPU predictor with the card's weights (built here where not given)."""
+    if cpu is None:
+        state = {k: v.detach().cpu() for k, v in predictor.model.state_dict().items()}
+        cpu = OffsetKeypointPredictor(dict(cfg.model), state, cfg.slot_size, device="cpu")
     coord, feat = cloud[:, :3], cloud[:, 3:]
     gpu_res, cpu_res = predictor.infer(coord, feat), cpu.infer(coord, feat)
     np.testing.assert_array_equal(gpu_res["coord"], cpu_res["coord"])
@@ -997,17 +1040,11 @@ class ReluTies:
 
 @contextlib.contextmanager
 def cpu_order_sums():
-    """SpUNet's segment sums (StridedConvDown's parent sums) in the CPU's row order on the card:
-    ``index_put_`` with ``accumulate`` sorts the rows by segment, stably, and adds them in that order,
-    where the path's ``index_add_`` adds with atomics in an order that changes from run to run."""
+    """SpUNet's segment sums (StridedConvDown's parent sums) in the CPU's row order on the card
+    (``segment_sum_in_order``), where the path's ``index_add_`` adds with atomics in an order that
+    changes from run to run."""
     plain = spunet_module.segment_sum
-
-    def ordered(data, segment_ids, num_segments):
-        keep = (segment_ids >= 0) & (segment_ids < num_segments)
-        out = data.new_zeros((num_segments,) + data.shape[1:])
-        return out.index_put_((segment_ids[keep].long(),), data[keep], accumulate=True)
-
-    spunet_module.segment_sum = ordered
+    spunet_module.segment_sum = segment_sum_in_order
     try:
         yield
     finally:
@@ -1378,20 +1415,7 @@ def phase_pigseg() -> None:
     t0 = time.perf_counter()
     cpu_res = cpu.infer(cloud[:, :3], cloud[:, 3:])
     print(f"pigseg request on the CPU: {(time.perf_counter() - t0) * 1e3:.1f} ms (host clock)")
-    np.testing.assert_array_equal(gpu_res["inverse"], cpu_res["inverse"])
-    a, b = gpu_res["seg_logits"], cpu_res["seg_logits"]
-    err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
-    print(f"pigseg card vs cpu seg_logits {a.shape}: max_abs_err={err:.3e} (|cpu| max {scale:.3f}) "
-          f"tol={CPU_TOL:g} x max(1, |cpu| max)")
-    if not (np.isfinite(a).all() and err <= CPU_TOL * max(1.0, scale)):
-        raise AssertionError("card and CPU disagree on the pigseg logits")
-    top2 = np.sort(b, axis=1)[:, -2:]
-    tie = (top2[:, 1] - top2[:, 0] <= 2 * err)[cpu_res["inverse"]]
-    differ = (a.argmax(1) != b.argmax(1))[cpu_res["inverse"]]
-    print(f"pigseg card vs cpu labels: {int(differ.sum())} of {differ.size} points differ; {int(tie.sum())} points "
-          f"sit on a near tie (the CPU's two best logits closer than {2 * err:.3e})")
-    if (differ & ~tie).any():
-        raise AssertionError(f"{int((differ & ~tie).sum())} pigseg labels differ away from a near tie")
+    compare_seg_labels("pigseg", gpu_res, cpu_res)
 
     maps = capture_maps(predictor.model, lambda: predictor.predict(cloud[:, :3], cloud[:, 3:]), "pigseg")
     rng = np.random.default_rng(6)
@@ -1399,6 +1423,28 @@ def phase_pigseg() -> None:
         for dtype in (torch.float32, torch.bfloat16):
             check_attention(rng, n, heads, patch, dtype)
             check_conv(rng, maps[n], c, dtype)
+
+
+def compare_seg_labels(label: str, gpu_res: dict, cpu_res: dict, gpu_labels=None, cpu_labels=None) -> None:
+    """A segmentation request's voxel logits (``SegmentPredictor.infer``) card against CPU within
+    CPU_TOL x max(1, max|cpu|), and its per-point labels (theirs, or ``gpu_labels`` and ``cpu_labels``
+    where given) apart only where the CPU's two best logits are closer than twice the logit error."""
+    np.testing.assert_array_equal(gpu_res["inverse"], cpu_res["inverse"])
+    a, b = gpu_res["seg_logits"], cpu_res["seg_logits"]
+    err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+    print(f"{label} card vs cpu seg_logits {a.shape}: max_abs_err={err:.3e} (|cpu| max {scale:.3f}) "
+          f"tol={CPU_TOL:g} x max(1, |cpu| max)")
+    if not (np.isfinite(a).all() and err <= CPU_TOL * max(1.0, scale)):
+        raise AssertionError(f"card and CPU disagree on the {label} logits")
+    top2 = np.sort(b, axis=1)[:, -2:]
+    tie = (top2[:, 1] - top2[:, 0] <= 2 * err)[cpu_res["inverse"]]
+    if gpu_labels is None:
+        gpu_labels, cpu_labels = a.argmax(1)[cpu_res["inverse"]], b.argmax(1)[cpu_res["inverse"]]
+    differ = gpu_labels != cpu_labels
+    print(f"{label} card vs cpu labels: {int(differ.sum())} of {differ.size} points differ; {int(tie.sum())} points "
+          f"sit on a near tie (the CPU's two best logits closer than {2 * err:.3e})")
+    if (differ & ~tie).any():
+        raise AssertionError(f"{int((differ & ~tie).sum())} {label} labels differ away from a near tie")
 
 
 def capture_maps(model, run, label: str) -> dict:
@@ -2611,28 +2657,39 @@ def keypoint_backbone(cfg) -> dict:
     return dict(cfg.model.get("backbone_conf") or cfg.model.backbone)
 
 
-def phase_kp_serve(config: str) -> dict:
-    """``serve --task keypoint`` with a global keypoint recipe at full width, slot 8192, seeded weights:
-    1 warm-up and 3 POSTs of body-like clouds (B1 and B3 once per Block, one rulebook per level), one
-    request under torch.profiler, and the card's reply against the CPU port's on each cloud with the
-    same weights and np.random seeded alike (the padding subsamples clouds past the slot), within
-    CPU_TOL x the cloud's scale (mm).  Returns the latencies, launches, profile and a request's maps."""
+def phase_kp_serve(config: str, task: str = "keypoint", expect=None) -> dict:
+    """``serve --task keypoint`` (or ``task``) with a keypoint recipe at full width, slot 8192, seeded
+    weights: 1 warm-up and 3 POSTs of body-like clouds (B1 and B3 once per Block, one rulebook per level,
+    or ``expect`` for ``phase_serve``), one request under torch.profiler, and the card's reply against the
+    CPU port's on each cloud with the same weights and np.random seeded alike (the padding subsamples
+    clouds past the slot), within CPU_TOL x the cloud's scale (mm); an offset head's through ``phase_cpu``
+    (its outputs, and its keypoints apart only on an argmax tie).  Returns the latencies, launches,
+    profile and a request's maps (none where the backbone builds no kernel map)."""
     cfg = Config.fromfile(config)
-    predictor = serve.build_predictor("keypoint", cfg, None, cfg.slot_size, "cuda")
+    predictor = serve.build_predictor(task, cfg, None, cfg.slot_size, "cuda")
     rng = np.random.default_rng(19)
     clouds = [request_cloud(rng, CLOUD_POINTS) for _ in range(REQUESTS + 1)]
     warm = clouds.pop()
     predictor.predict(warm[:, :3], warm[:, 3:])
-    latencies, counts = phase_serve(predictor, clouds, cfg.model.backbone_conf, check_keypoints)
-    print(f"keypoint serve ({config}): request latency (host clock, POST to reply, slot {cfg.slot_size}, {REQUESTS} "
+    latencies, counts = phase_serve(predictor, clouds, cfg.model.backbone_conf, check_keypoints, expect)
+    print(f"{task} serve ({config}): request latency (host clock, POST to reply, slot {cfg.slot_size}, {REQUESTS} "
           f"requests of {CLOUD_POINTS} points x 7): median {statistics.median(latencies):.2f} ms, each "
           f"{[round(x, 2) for x in latencies]} {stamp()}")
     cloud = clouds[0]
-    prof = profile_run(f"one keypoint request ({cfg.model.type})",
+    prof = profile_run(f"one {task} request ({cfg.model.type})",
                        lambda: predictor.predict(cloud[:, :3], cloud[:, 3:]), top=8)
-    maps = capture_maps(predictor.model, lambda: predictor.predict(cloud[:, :3], cloud[:, 3:]), "keypoint request")
+    maps = {}
+    if hasattr(predictor.model.backbone, "_kernel_map"):
+        maps = capture_maps(predictor.model, lambda: predictor.predict(cloud[:, :3], cloud[:, 3:]),
+                            f"{task} request")
     state = {k: v.detach().cpu() for k, v in predictor.model.state_dict().items()}
-    cpu = serve.build_predictor("keypoint", cfg, state, cfg.slot_size, "cpu")
+    cpu = serve.build_predictor(task, cfg, state, cfg.slot_size, "cpu")
+    if task == "offset_keypoint":
+        for c in clouds:
+            phase_cpu(cfg, predictor, c, cpu)
+        del predictor, cpu
+        torch.cuda.empty_cache()
+        return dict(latencies=latencies, counts=counts, profile=prof, maps=maps)
     for i, c in enumerate(clouds):
         replies = []
         for p in (predictor, cpu):
@@ -2689,9 +2746,11 @@ def phase_kp_train(label: str, cfg, expect=None, probe: bool = False) -> dict:
     if probe:
         run["profile"] = profile_step(trainer, trainer.run_step)
         model = trainer.model.eval()
-        with torch.no_grad():
-            run["maps"] = capture_maps(model, lambda: model(build_point_batch(sample_to_device(batch, "cuda"),
-                                                                              batch["num_samples"])), label)
+        run["maps"] = {}
+        if hasattr(model.backbone, "_kernel_map"):
+            with torch.no_grad():
+                run["maps"] = capture_maps(model, lambda: model(build_point_batch(sample_to_device(batch, "cuda"),
+                                                                                  batch["num_samples"])), label)
         del trainer, model
         torch.cuda.empty_cache()
         fresh = Trainer(cfg, device="cuda")
@@ -2853,6 +2912,361 @@ def phase_keypoint_heads(kernels: list, per_request: dict) -> None:
           f"{inferred['mean_mm']:.2f} mm (seeded weights after 4 steps) {stamp()}")
 
 
+# ---- OctFormer and Swin3D, the pig users' tools (phases 37-40) ------------------------------------------
+
+OCT_CONFIG = "configs/my_dataset/keypoint_octformer.py"
+OCT_SEG_CONFIG = "configs/pigseg/semseg-octformer-v1m1-0-base.py"
+SWIN_OFFSET_CONFIG = "configs/my_dataset/offset_keypoint_swin3d.py"
+SWIN_VOTE_CONFIG = "configs/my_dataset/keypoint_swin3d_plus.py"
+R3_TEST_CONFIG = "configs/synthetic/semseg-spunet-r3-test.py"
+# the card-vs-CPU steps' depths: two Blocks in the first stage, so that the dilated (OctFormer) and the
+# shifted (Swin3D) Block run, which one Block per stage would leave out; one Block in each other stage
+CPU_STEP_DEPTHS = (2, 1, 1, 1)
+TOOL_NPY_SCANS, TOOL_PCD_SCANS = 3, 2  # batch_infer_export_txt's bare-xyz .npy and ascii .pcd scans
+TOOL_SCENE_POINTS = 30000  # infer_npy's pig scene
+EVAL_CPU_SCENES = 2  # evaluate_all_splits card against CPU: test scenes per split on both devices
+SEMSEG_MIOU_TOL = 0.005  # an mIoU card against CPU: labels apart only on ties (phase 21's limit)
+
+
+def octformer_levels(model) -> list:
+    """[(N per sample, channels, Blocks)] of every stage of an OctFormer ``model`` at slot 8192."""
+    return [(model._stage_cap(8192, s), c, model.num_blocks[s]) for s, c in enumerate(model.channels)]
+
+
+def phase_octformer_kernels(levels, batch: int, step_maps: dict, request_maps: dict, step: dict,
+                            request: dict) -> dict:
+    """B3 (forward, and at the same shape the input gradient's mirrored conv) and B4 at OctFormer's CPE
+    (K = 27, Cin = Cout = the stage's width: 96, 192, 384, 384) on its maps at every level of a
+    training batch and of a request, in f32 against their plain versions and bit for bit run to run;
+    each timed beside its plain version, the gather + torch.matmul and the bound, summed per step (B3
+    twice per Block, B4 once) and per request (B3 once per Block); each map's rulebook build timed.
+    The sums' launches are checked against one step's and one request's counts.  Returns {"step": sums,
+    "request": sums, "errors": each kernel's largest error}."""
+    rng = np.random.default_rng(43)
+    errors = dict.fromkeys(("subm_conv_fwd", "subm_conv_dw"), 0.0)
+    sums = {"step": {}, "request": {}}
+    launches = {"step": dict.fromkeys(errors, 0), "request": dict.fromkeys(errors, 0)}
+    for key, maps, per_block, b in (("step", step_maps, {"subm_conv_fwd": 2, "subm_conv_dw": 1}, batch),
+                                    ("request", request_maps, {"subm_conv_fwd": 1}, 1)):
+        if sorted(maps) != sorted(n * b for n, _, _ in levels):
+            raise AssertionError(f"OctFormer {key}: maps at N = {sorted(maps)}, expected {levels} x {b}")
+        for n, c, blocks in levels:
+            idx = maps[n * b]
+            if idx.shape[1] != 27:
+                raise AssertionError(f"OctFormer {key} map N={n * b} has K={idx.shape[1]}")
+            found = {"subm_conv_fwd": check_conv(rng, idx, c, torch.float32)}
+            if key == "step":
+                found["subm_conv_dw"] = check_conv_dw(rng, idx, c, torch.float32)
+            check_conv_bits(rng, idx, c, torch.float32)
+            for name, err in found.items():
+                errors[name] = max(errors[name], err)
+            print(f"OctFormer {key} level N={n * b} K=27 Cin=Cout={c} f32 (x{blocks} Blocks per {key}):")
+            for name, times in per_block.items():
+                row = time_conv(rng, idx, c, torch.float32, dw=name == "subm_conv_dw")
+                add_row(sums[key], name, row, times * blocks)
+                launches[key][name] += times * blocks
+        books = [time_rulebook(idx) for idx in maps.values()]
+        print(f"rulebook builds per OctFormer {key} ({len(books)} K = 27 maps): "
+              f"{sum(r['ms'] for r in books):.4f} ms (host clock), device {sum(r['device_ms'] for r in books):.4f} "
+              f"ms, bound {sum(r['bound_ms'] for r in books):.4f} ms {stamp()}")
+        for name, t in sums[key].items():
+            counted = (step if key == "step" else request)[name]
+            if launches[key][name] != counted:
+                raise AssertionError(f"OctFormer {key}: {name} timed for {launches[key][name]} launches, the path "
+                                     f"made {counted}")
+            t["launches"] = counted
+            print(f"{name} per OctFormer {key} (f32, K=27, sum over its {counted} launches): kernel {t['ms']:.4f} ms, "
+                  f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"{stamp()}")
+    return dict(sums, errors=errors)
+
+
+def check_in_order_means() -> None:
+    """``segment_mean_in_order`` (Swin3D's anchor and pooled coordinates) gives the CPU's bits on the card,
+    where ``segment_mean``'s atomics need not: at the anchor's shape (8 samples of 8192 rows) and at a
+    pooling's (65,536 rows into 32,768 parents, a tenth of the rows dropped)."""
+    gen = torch.Generator().manual_seed(53)
+    rows = torch.randn((8 * 8192, 3), generator=gen) * 1.5
+    parents = torch.randint(0, 32768, (rows.shape[0],), generator=gen)
+    cases = {"anchor": (torch.arange(rows.shape[0]) // 8192, 8),
+             "pooling": (torch.where(torch.rand(rows.shape[0], generator=gen) < 0.1, 32768, parents), 32768)}
+    for name, (ids, m) in cases.items():
+        card = segment_mean_in_order(rows.cuda(), ids.cuda(), m).cpu()
+        cpu = segment_mean_in_order(rows, ids, m)
+        racy = segment_mean(rows.cuda(), ids.cuda(), m).cpu()
+        print(f"segment_mean_in_order ({name}, {rows.shape[0]} rows into {m}) card vs cpu: equal bits "
+              f"{torch.equal(card, cpu)}; the atomic segment_mean's difference {(racy - cpu).abs().max().item():.3e}")
+        if not torch.equal(card, cpu):
+            raise AssertionError(f"segment_mean_in_order ({name}): the card's means differ from the CPU's")
+
+
+def phase_backbone_step_cpu(label: str, cfg) -> dict:
+    """One training step of a keypoint recipe over OctFormer or Swin3D at its widths and slot, depths
+    CPU_STEP_DEPTHS, no drop path, batch KP_CPU_BATCH of its data (np.random seeded 5), card against CPU
+    in f32 within TRAIN_CPU_TOL, the card on the CPU's side of each ReLU tie (the heads' ReLUs)."""
+    bb = keypoint_backbone(cfg)
+    depths = "num_blocks" if bb["type"].startswith("OctFormer") else "depths"
+    model_cfg = dict(cfg.model)
+    model_cfg["backbone_conf"] = dict(bb, drop_path_rate=0.0, **{depths: CPU_STEP_DEPTHS})
+    np.random.seed(5)
+    ds = build_dataset(dict(cfg.data.train))
+    batch_np = collate([ds[i] for i in range(KP_CPU_BATCH)], cfg.slot_size, np.random)
+    return compare_step(label, model_cfg, batch_np, torch.float32, TRAIN_CPU_TOL, relu_ties=True)
+
+
+def tool_config(root: str, base: str, **overrides) -> str:
+    """A config file over ``base`` with ``overrides``, for the CLIs that take no ``--options``."""
+    path = os.path.join(root, f"tool_{len(glob.glob(os.path.join(root, 'tool_*')))}_{os.path.basename(base)}")
+    lines = [f"_base_ = [{os.path.abspath(base)!r}]"] + [f"{k} = {v!r}" for k, v in overrides.items()]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def timed_tool(label: str, run) -> dict:
+    """``run()`` with the launch counts set to 0 just before and read just after, and its host-clock time."""
+    torch.cuda.synchronize()
+    set_launch_counts_to_zero()
+    t0 = time.perf_counter()
+    result = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"{label}: {seconds:.2f} s (host clock), launches {counts}, rulebooks {sc.rulebook_builds} {stamp()}")
+    return dict(result=result, seconds=seconds, counts=counts)
+
+
+def cloud_scale(coord: np.ndarray) -> float:
+    """The normalization's scale of a cloud: its largest distance from its centroid (mm)."""
+    return float(np.linalg.norm(coord - coord.mean(0), axis=1).max())
+
+
+def phase_inference_split(root: str, blocks: int) -> dict:
+    """``inference_split`` with ``keypoint_octformer.py`` (seeded weights) over the written val split on
+    the card and with ``--device cpu``: [clouds, 6] errors in mm, B3 once per Block per cloud on the card,
+    the errors and the txt tables card against CPU within CPU_TOL x the largest cloud scale (the tables'
+    2 decimals besides), a PLY per cloud from each."""
+    config = tool_config(root, OCT_CONFIG, data=dict(train=dict(data_root=root), val=dict(data_root=root)))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        np.random.seed(31)
+        argv = ["--config-file", config, "--split", "val", "--out", os.path.join(root, f"errors_{device}.txt"),
+                "--viz-dir", os.path.join(root, f"viz_{device}"), "--device", device]
+        runs[device] = timed_tool(f"inference_split on {device}", lambda: inference_split.main(argv))
+    clouds = KP_CLOUDS["val"]
+    card, cpu = runs["cuda"]["result"], runs["cpu"]["result"]
+    scale = max(cloud_scale(np.load(p)[:, :3]) for p in glob.glob(os.path.join(root, "val", "pointclouds", "*.npy")))
+    err = float(np.abs(card - cpu).max())
+    print(f"inference_split card vs cpu: errors {card.shape}, mean {card.mean():.2f} mm on the card, max_abs_err "
+          f"{err:.3e} mm, tol {CPU_TOL:g} x scale {scale:.1f} mm = {CPU_TOL * scale:.3e} mm")
+    if card.shape != (clouds, 6) or not np.isfinite(card).all() or err > CPU_TOL * scale:
+        raise AssertionError("inference_split: card and CPU disagree")
+    tables = [open(os.path.join(root, f"errors_{d}.txt")).read().splitlines() for d in ("cuda", "cpu")]
+    for a, b in zip(*tables[:2]):
+        ta, tb = a.split("\t"), b.split("\t")
+        if ta[0] != tb[0] or (ta[0] != "sample" and np.abs(np.float64(ta[1:]) - np.float64(tb[1:])).max()
+                              > CPU_TOL * scale + 0.01):
+            raise AssertionError(f"inference_split tables differ: {a!r} / {b!r}")
+    if len(tables[0]) != clouds + 1 or len(os.listdir(os.path.join(root, "viz_cuda"))) != clouds:
+        raise AssertionError("inference_split: expected a table row and a PLY per cloud")
+    if runs["cuda"]["counts"]["subm_conv_fwd"] != blocks * clouds or runs["cuda"]["counts"]["patch_attention_fwd"]:
+        raise AssertionError(f"inference_split: expected B3 {blocks} per cloud and no B1: {runs['cuda']['counts']}")
+    return {d: r["seconds"] for d, r in runs.items()}
+
+
+def write_pcd(path: str, coord: np.ndarray) -> None:
+    """An ascii PCD of xyz."""
+    with open(path, "w") as f:
+        f.write(f"VERSION 0.7\nFIELDS x y z\nSIZE 4 4 4\nTYPE F F F\nCOUNT 1 1 1\nWIDTH {len(coord)}\nHEIGHT 1\n"
+                f"POINTS {len(coord)}\nDATA ascii\n")
+        np.savetxt(f, coord, fmt="%.4f")
+
+
+def export_ties(name: str, predictors, coord: np.ndarray, card_kp: np.ndarray, cpu_kp: np.ndarray,
+                tol: float) -> None:
+    """A scan whose keypoints from ``batch_infer_export_txt`` (argmax) differ between the card's txt and the
+    CPU's by more than ``tol``: the scan's logits and offsets again through the predictor on both devices,
+    within CPU_TOL x max(1, max|cpu|), and each keypoint that differs in the txts must be, in the CPU's, the
+    candidate of the CPU's best logit and, in the card's, the candidate of a point whose CPU logit lies
+    within twice the measured logit error of that best (a near tie that the card's sums can flip);
+    else it fails.  Each such waiver is printed."""
+    card, cpu = (p.infer(coord) for p in predictors)
+    np.testing.assert_array_equal(card["coord"], cpu["coord"])
+    errs = {}
+    for key in ("offset_pred", "mask_logits"):
+        errs[key] = float(np.abs(card[key] - cpu[key]).max())
+        if not (np.isfinite(card[key]).all() and errs[key] <= CPU_TOL * max(1.0, float(np.abs(cpu[key]).max()))):
+            raise AssertionError(f"batch_infer_export_txt {name}: card and CPU disagree on {key} ({errs[key]:.3e})")
+    logits, tie = cpu["mask_logits"], 2 * errs["mask_logits"]
+    candidates = (cpu["coord"][:, None, :] + cpu["offset_pred"]) * cpu["scale"] + cpu["centroid"]  # [N, K, 3]
+    for k in np.nonzero(np.abs(card_kp - cpu_kp).max(1) > tol)[0]:
+        best = int(logits[:, k].argmax())
+        if np.abs(candidates[best, k] - cpu_kp[k]).max() > tol:
+            raise AssertionError(f"batch_infer_export_txt {name}: keypoint {k} of the CPU's txt is not its argmax pick")
+        gap = logits[best, k] - logits[:, k]
+        picks = np.nonzero((gap <= tie) & (np.abs(candidates[:, k] - card_kp[k]).max(1) <= tol))[0]
+        if not len(picks):
+            raise AssertionError(f"batch_infer_export_txt {name}: keypoint {k} of the card's txt is no argmax pick "
+                                 f"within a logit gap of {tie:.3e} of the CPU's best")
+        print(f"  batch_infer_export_txt {name}: keypoint {k} waived: the card picked point {int(picks[0])} at a CPU "
+              f"logit gap {float(gap[picks[0]]):.3e} <= {tie:.3e} (2 x the logit error), the CPU point {best}")
+
+
+def phase_batch_export(root: str) -> dict:
+    """``batch_infer_export_txt`` with ``offset_keypoint_swin3d.py`` (seeded weights, argmax) over a
+    directory of bare-xyz .npy and ascii .pcd scans (the written val clouds' xyz) on the card and with
+    ``--device cpu``: one 6 x 3 txt per scan, card against CPU within CPU_TOL x the scan's scale (and
+    the txt's 3 decimals); where they differ more, ``export_ties`` must find each keypoint that differs on
+    a near argmax tie."""
+    scans = os.path.join(root, "scans")
+    os.makedirs(scans)
+    paths = sorted(glob.glob(os.path.join(root, "val", "pointclouds", "*.npy")))[:TOOL_NPY_SCANS + TOOL_PCD_SCANS]
+    files = []  # in the tool's order: by name
+    for i, p in enumerate(paths):
+        coord = np.load(p)[:, :3]
+        files.append(os.path.join(scans, f"scan{i}.npy" if i < TOOL_NPY_SCANS else f"scan{i}.pcd"))
+        if i < TOOL_NPY_SCANS:
+            np.save(files[-1], coord)
+        else:
+            write_pcd(files[-1], coord)
+    cfg, runs = Config.fromfile(SWIN_OFFSET_CONFIG), {}
+    for device in ("cuda", "cpu"):
+        argv = ["--config-file", SWIN_OFFSET_CONFIG, "--scan-dir", scans, "--out-dir",
+                os.path.join(root, f"batch_{device}"), "--tag", "swin3d", "--slot-size", str(cfg.slot_size),
+                "--device", device]
+        runs[device] = timed_tool(f"batch_infer_export_txt on {device}", lambda: batch_infer_export_txt.main(argv))
+    predictors = None
+    for scan, a, b in zip(files, runs["cuda"]["result"], runs["cpu"]["result"]):
+        kp_a, kp_b = np.loadtxt(a), np.loadtxt(b)
+        coord, _ = batch_infer_export_txt.load_cloud(scan)
+        tol = CPU_TOL * cloud_scale(coord) + 1e-3
+        err = float(np.abs(kp_a - kp_b).max())
+        print(f"batch_infer_export_txt {os.path.basename(a)}: {kp_a.shape}, card vs cpu max_abs_err {err:.3e} mm, "
+              f"tol {tol:.3e} mm")
+        if kp_a.shape != (6, 3) or not np.isfinite(kp_a).all():
+            raise AssertionError(f"batch_infer_export_txt: expected 6 x 3 finite keypoints in {a}")
+        if err > tol:
+            if predictors is None:  # the tool's seeded weights on both devices
+                card = OffsetKeypointPredictor(dict(cfg.model), None, cfg.slot_size, "cuda")
+                state = {k: v.detach().cpu() for k, v in card.model.state_dict().items()}
+                predictors = (card, OffsetKeypointPredictor(dict(cfg.model), state, cfg.slot_size, "cpu"))
+            export_ties(os.path.basename(scan), predictors, coord, kp_a, kp_b, tol)
+    if len(runs["cuda"]["result"]) != len(paths) or any(runs["cuda"]["counts"].values()):
+        raise AssertionError(f"batch_infer_export_txt: expected {len(paths)} txts and no kernel launch (Swin3D), "
+                             f"got {runs['cuda']['counts']}")
+    return {d: r["seconds"] for d, r in runs.items()}
+
+
+def phase_infer_npy(root: str, blocks: int) -> dict:
+    """``infer_npy`` with ``semseg-octformer-v1m1-0-base.py`` (seeded weights, slot 32768) on one
+    ~30k-point pig scene on the card and with ``--device cpu``: one label per cleaned point, B3 once per
+    Block on the card, the labels card against CPU apart only on a near tie of the voxel logits (read
+    through ``SegmentPredictor`` on both devices), and both PLYs."""
+    scene = os.path.join(root, "scene.npy")
+    np.save(scene, pig_cloud(np.random.default_rng(47), TOOL_SCENE_POINTS)[:, :7])
+    runs = {}
+    for device in ("cuda", "cpu"):
+        argv = [scene, "--config-file", OCT_SEG_CONFIG, "--out-dir", os.path.join(root, f"npy_{device}"),
+                "--device", device]
+        runs[device] = timed_tool(f"infer_npy on {device}", lambda: infer_npy.main(argv))
+    coord, feat = infer_npy.preprocess(np.load(scene))
+    model = dict(Config.fromfile(OCT_SEG_CONFIG).model)
+    res = [SegmentPredictor(model, None, SEG_SLOT, device).infer(coord, feat) for device in ("cuda", "cpu")]
+    preds = [runs[d]["result"] for d in ("cuda", "cpu")]
+    compare_seg_labels("infer_npy", *res, *preds)
+    pig = int((preds[0] == 1).sum())
+    for name, count in (("scene_pred", len(coord)), ("scene_pig_only", pig)):
+        with open(os.path.join(root, "npy_cuda", f"{name}.ply")) as f:
+            head = f.read(200)
+        if f"element vertex {count}\n" not in head:
+            raise AssertionError(f"infer_npy: {name}.ply does not hold {count} points")
+    if runs["cuda"]["counts"]["subm_conv_fwd"] != blocks:
+        raise AssertionError(f"infer_npy: expected B3 {blocks} times, got {runs['cuda']['counts']}")
+    print(f"infer_npy: {len(coord)} cleaned points, {pig} labelled pig on the card {stamp()}")
+    return {d: r["seconds"] for d, r in runs.items()}
+
+
+def phase_evaluate_all_splits(root: str) -> dict:
+    """``evaluate_all_splits`` over ``semseg-spunet-r3-test.py`` with ``exp/semseg_r3`` (its train and val
+    splits, 8 scenes each; the synthetic scenes are seeded by split) on the card, mIoU above 0.95 on both;
+    then EVAL_CPU_SCENES scenes per split on the card and with ``--device cpu``, each metric within
+    SEMSEG_MIOU_TOL."""
+    runs = {}
+    for key, device, scenes in (("card", "cuda", None), ("card_small", "cuda", EVAL_CPU_SCENES),
+                                ("cpu", "cpu", EVAL_CPU_SCENES)):
+        config = tool_config(root, R3_TEST_CONFIG, save_path=os.path.join(root, "eval_" + key),
+                             **({"data": dict(test=dict(num_scenes=scenes))} if scenes else {}))
+        argv = ["--config-file", config, "--device", device]
+        runs[key] = timed_tool(f"evaluate_all_splits ({key})", lambda: evaluate_all_splits.main(argv))
+    full = runs["card"]["result"]
+    print(f"evaluate_all_splits on the card: {full} {stamp()}")
+    if sorted(full) != ["train", "val"] or any(r["mIoU"] <= 0.95 for r in full.values()):
+        raise AssertionError(f"evaluate_all_splits: expected mIoU above 0.95 on train and val, got {full}")
+    for split, r in runs["cpu"]["result"].items():
+        diff = {k: abs(v - runs["card_small"]["result"][split][k]) for k, v in r.items()}
+        print(f"evaluate_all_splits {split} ({EVAL_CPU_SCENES} scenes) card vs cpu: |diff| {diff} (tol "
+              f"{SEMSEG_MIOU_TOL})")
+        if max(diff.values()) > SEMSEG_MIOU_TOL:
+            raise AssertionError(f"evaluate_all_splits {split}: card and CPU disagree")
+    return {k: r["seconds"] for k, r in runs.items()}
+
+
+def phase_backbones(kernels: list) -> None:
+    """Phases 37-40: OctFormer and Swin3D served, trained, the CPE's kernels at OctFormer's widths, and
+    the pig users' four tools; adds ``octformer_step_*`` and ``octformer_request_*`` to the kernels line."""
+    oct_model = build_model(dict(Config.fromfile(OCT_CONFIG).model.backbone_conf))
+    levels, blocks, stages = octformer_levels(oct_model), sum(oct_model.num_blocks), len(oct_model.channels)
+    del oct_model
+    # OctFormer: B3 per Block's CPE (twice in a step: the input gradient), B4 once in a step, no B1 or B2;
+    # one rulebook per stage.  Swin3D: no kernel, no rulebook
+    oct_step = {"patch_attention_fwd": 0, "patch_attention_bwd": 0, "subm_conv_fwd": 2 * blocks, "subm_conv_dw": blocks}
+    check_in_order_means()
+    served = {"octformer": phase_kp_serve(OCT_CONFIG, "keypoint", (0, blocks, stages)),
+              "swin3d": phase_kp_serve(SWIN_OFFSET_CONFIG, "offset_keypoint", (0, 0, 0))}
+    with tempfile.TemporaryDirectory() as root:
+        write_keypoint_clouds(root)
+        trained, batch = {}, None
+        for key, config, expect in (("octformer", OCT_CONFIG, (oct_step, stages)),
+                                    ("swin3d", SWIN_VOTE_CONFIG, (dict.fromkeys(oct_step, 0), 0))):
+            cfg = recipe_config(config, root, os.path.join(root, f"exp_{key}"))
+            trained[key] = phase_kp_train(f"{key} recipe train", cfg, expect, probe=True)
+            phase_backbone_step_cpu(f"{key} recipe", cfg)
+            batch = batch or cfg.batch_size
+        step = trained["octformer"]["steps"][-1]
+        request = {name: served["octformer"]["counts"].get(name, 0) // REQUESTS for name in oct_step}
+        conv = phase_octformer_kernels(levels, batch, trained["octformer"].pop("maps"),
+                                       served["octformer"].pop("maps"), step, request)
+        tools = {"inference_split": phase_inference_split(root, blocks), "batch_infer_export_txt":
+                 phase_batch_export(root), "infer_npy": phase_infer_npy(root, blocks),
+                 "evaluate_all_splits": phase_evaluate_all_splits(root)}
+    bound_by = lambda t: "operations" if t["t_ops"] >= t["t_bytes"] else "bytes"  # noqa: E731
+    for row in kernels:
+        name = row["name"]
+        row["octformer_step_launches"], row["octformer_request_launches"] = step[name], request[name]
+        if name in conv["step"]:
+            t = conv["step"][name]
+            row.update({"octformer_step_max_abs_err": conv["errors"][name], "octformer_step_ms": t["ms"],
+                        "octformer_step_plain_ms": t["plain_ms"], "octformer_step_library_ms": t["library_ms"],
+                        "octformer_step_bound_ms": t["bound_ms"], "octformer_step_bound_by": bound_by(t)})
+        if name in conv["request"]:
+            t = conv["request"][name]
+            row.update({"octformer_request_ms": t["ms"], "octformer_request_plain_ms": t["plain_ms"],
+                        "octformer_request_library_ms": t["library_ms"], "octformer_request_bound_ms": t["bound_ms"],
+                        "octformer_request_bound_by": bound_by(t)})
+    for name, s in served.items():
+        print(f"{name} serve: request median {statistics.median(s['latencies']):.2f} ms, launches per request "
+              f"{ {k: v // REQUESTS for k, v in s['counts'].items()} }; profiled request busy "
+              f"{s['profile']['busy_ms']:.2f} ms, idle share {s['profile']['idle_share']:.3f} {stamp()}")
+    for name, run in trained.items():
+        prof = run["profile"]
+        print(f"{name} recipe: step median {statistics.median(run['step_ms'][1:]):.2f} ms (host clock, steps "
+              f"2-{len(run['step_ms'])}), peak memory {run['peak_bytes'] / 2**30:.2f} GiB, slot fill {run['fill']:.3f}, "
+              f"profiled step busy {prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f}, {prof['kernels']} "
+              f"kernels {stamp()}")
+    for name, seconds in tools.items():
+        print(f"{name}: wall time (host clock) {', '.join(f'{k} {v:.2f} s' for k, v in seconds.items())} {stamp()}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -2987,6 +3401,7 @@ def main() -> None:
     print(f"insseg_r3: anchor mAP/AP50/AP25 card {insseg['card']}, CPU {insseg['cpu']}; tester {insseg['seconds']:.2f} s "
           f"on the card {stamp()}")
     phase_keypoint_heads(kernels, per_request)
+    phase_backbones(kernels)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s {stamp()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,15 @@ arrays (what ``flax`` holds, or a checkpoint reader returns).  The rules:
   ``MaskedBatchNorm_{i}`` ``norms.{i}``, ``StridedConvDown_{i}``
   ``downs.{i}``, ``InverseConvUp_{i}`` ``ups.{i}``, ``BasicBlock_{i}``
   ``blocks.{i}`` and ``Dense_0`` ``head``; in a block ``SubMConv_0`` /
-  ``SubMConv_1`` are ``conv1`` / ``conv2`` and ``Dense_0`` is ``proj``.
+  ``SubMConv_1`` are ``conv1`` / ``conv2`` and ``Dense_0`` is ``proj``;
+* OctFormer-v1m1 and Swin3D-v1m1 (``models/octformer.py``, ``models/swin3d.py``):
+  ``OctFormer_0`` / ``Swin3DUNet_0`` is ``backbone`` and every module inside
+  keeps its flax name: ``embed``, ``stage{s}_block{i}.{cpe, norm1, attn.qkv,
+  attn.proj, norm2, mlp1, mlp2}``, ``down{s}.proj``, OctFormer's
+  ``up{s}_{proj, skip, norm}``; Swin3D's ``embed_norm`` (with its
+  ``batch_stats``), the cRSE tables ``attn.{xyz, rgb, norm}_{q, k, v}_table``,
+  ``down{s}.norm``, ``up{s}.{proj, proj_skip, norm}`` and ``dec{s}_block``.
+  The CPE's ``weight`` [27, C, C] keeps the JAX layout and its ``bias`` its name.
 
 ``load_jax_checkpoint`` reads a flax-msgpack checkpoint of the JAX package
 (``utils/checkpoint.py``, no ``msgpack`` package needed) and converts its
@@ -52,7 +60,7 @@ _PARENT_RENAMES = {
     ("mlp", "Dense_0"): "fc1",
     ("mlp", "Dense_1"): "fc2",
 }
-_BACKBONES = ("PointTransformerV3_0", "SpUNet_0")
+_BACKBONES = ("PointTransformerV3_0", "SpUNet_0", "OctFormer_0", "Swin3DUNet_0")
 # (parent pattern, child pattern, the port's name): SpUNet's call-order names
 _NUMBERED = tuple((re.compile(parent), re.compile(child), name) for parent, child, name in (
     (r"^SpUNet_0$", r"^SubMConv_0$", "stem"),

@@ -3,11 +3,13 @@
 (``pointcept_keypointdetection_tpu/engines/hooks/keypoint_evaluator.py:
 26-73``, ``:114-196``).
 
-``KeypointEvaluator`` (the global-regression heads): per val sample and
-keypoint, the distance between ``keypoint_pred`` and the normalized target
-times the sample's ``scale``; it logs the mean per keypoint over the val set
-and their mean, and publishes minus that mean as the metric the checkpoint
-saver keeps the best of.
+``KeypointEvaluator`` (the global-regression heads and the voting head): per
+val sample and keypoint, the distance between ``keypoint_pred`` and the
+normalized target times the sample's ``scale``; the model takes the batch,
+as JAX's eval step passes it (``VoteKeypointModel``'s prediction averages
+the votes of the points near the targets); it logs the mean per keypoint
+over the val set and their mean, and publishes minus that mean as the
+metric the checkpoint saver keeps the best of.
 
 ``OffsetKeypointEvaluator``, per val sample: the ground-truth keypoint is
 the mean of (point + target offset) over the points whose target mask is
@@ -45,7 +47,9 @@ class KeypointEvaluator(HookBase):
         with torch.no_grad():
             for batch_np in trainer.val_loader:
                 ns = batch_np["num_samples"]
-                out = model(build_point_batch(sample_to_device(batch_np, trainer.device), ns))
+                tensors = sample_to_device(batch_np, trainer.device)
+                # the batch goes in, as JAX's eval step passes it: VoteKeypointModel's keypoint_pred needs the targets
+                out = model(build_point_batch(tensors, ns), tensors)
                 pred = out["keypoint_pred"].float().cpu().numpy()  # [B, K, 3], normalized
                 dist = np.linalg.norm(pred - batch_np["keypoint"], axis=-1) * batch_np["scale"][:, None]
                 dist_sum = dist_sum + dist.sum(0)

@@ -5,3 +5,5 @@ from . import keypoint  # noqa: F401  (registers OffsetKeypointPTv3)
 from . import default  # noqa: F401  (registers DefaultSegmentor, DefaultSegmentorV2)
 from . import sparse_unet  # noqa: F401  (registers SpUNet-v1m1, -v1m2, -v1m3)
 from . import point_group  # noqa: F401  (registers PG-v1m1, PG-v1m2)
+from . import octformer  # noqa: F401  (registers OctFormer-v1m1)
+from . import swin3d  # noqa: F401  (registers Swin3D-v1m1)

@@ -20,9 +20,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights with the flax initialisers' scales.
 
     Linear: truncated lecun normal (std 1/sqrt(fan_in), cut at 2 std), zero
-    bias.  Sparse-conv weights (3-d ``weight`` / ``stem_weight``): truncated
-    normal 0.02 cut at +-0.04.  Norms keep ones, zeros and unit running
-    variance.  ``generator`` must live on the parameters' device."""
+    bias.  Sparse-conv weights (3-d ``weight`` / ``stem_weight``) and Swin3D's
+    4-d cRSE tables: truncated normal 0.02 cut at +-0.04.  Norms keep ones,
+    zeros and unit running variance.  ``generator`` must live on the
+    parameters' device."""
     for module in model.modules():
         if isinstance(module, nn.Linear):
             std = 1.0 / math.sqrt(module.in_features)
@@ -30,7 +31,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if module.bias is not None:
                 module.bias.zero_()
     for name, param in model.named_parameters():
-        if param.dim() == 3:
+        if param.dim() >= 3:
             nn.init.trunc_normal_(param, std=0.02, a=-0.04, b=0.04, generator=generator)
     return model
 

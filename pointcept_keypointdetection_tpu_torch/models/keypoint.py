@@ -9,16 +9,19 @@
   MaskedBatchNorm over the B pooled rows (momentum 0.1, eps 1e-5) -> ReLU ->
   Dropout 0.3 -> Dense -> ReLU -> Dense to [B, K, 3]; the loss is the MSE in
   normalized units and ``mean_dist`` the keypoint distance times ``scale``.
-* ``OffsetKeypointModel`` (`:68-106`): dense per-point offset + mask head.
+* ``OffsetKeypointModel`` (`:68-106`, ``OffsetKeypointPTv3``,
+  ``OffsetKeypointSwin3D``, ``OffsetKeypointOctFormer``): dense per-point
+  offset + mask head.
 * ``VoteKeypointModel`` (`:132-178`, ``KeypointSwin3DVote``): per-point votes,
   a smooth-L1 loss over the points within ``vote_radius`` of each keypoint,
   and their mean vote as the prediction.
 
 The heads' Dense layers are flax's without a ``dtype`` (``PromotedDense``).
-An alias whose backbone the port lacks (Swin3D, OctFormer, ...) raises where
-it is built.  The head modules keep flax's call order: ``head.{2i}`` is
-``Dense_{i}`` (``convert.py``); ``KeypointModel``'s ``head.1`` is its
-``MaskedBatchNorm_0`` and ``head.3`` its Dropout.
+The ported backbones are PT-v3m1, PT-v3plus, SpUNet, OctFormer-v1m1 and
+Swin3D-v1m1; a head over one the port lacks (PT-v2m2, PT-v1, ST-v1m2,
+OA-CNNs) raises where it is built.  The head modules keep flax's call
+order: ``head.{2i}`` is ``Dense_{i}`` (``convert.py``); ``KeypointModel``'s
+``head.1`` is its ``MaskedBatchNorm_0`` and ``head.3`` its Dropout.
 """
 
 from __future__ import annotations
@@ -103,7 +106,7 @@ class OffsetKeypointModel(nn.Module):
         super().__init__()
         self.num_keypoints = num_keypoints
         self.reg_loss_weight = reg_loss_weight
-        self.backbone = build_model(dict(backbone_conf))
+        self.backbone = build_backbone("OffsetKeypointModel", backbone_conf)
         self.head = nn.Sequential(
             nn.Linear(self.backbone.out_channels, hidden_dim),
             nn.ReLU(),
@@ -175,7 +178,7 @@ for _name in ("KeypointPTv3", "KeypointPTv1", "KeypointPTv2", "KeypointSwin3D", 
               "KeypointOctFormer", "KeypointStratifiedTransformer", "KeypointSparseUNet", "KeypointModel",
               "KeypointPTv3Plus"):
     MODELS.register_module(name=_name, module=KeypointModel)
-for _name in ("OffsetKeypointPTv3", "OffsetKeypointModel"):
+for _name in ("OffsetKeypointPTv3", "OffsetKeypointSwin3D", "OffsetKeypointOctFormer", "OffsetKeypointModel"):
     MODELS.register_module(name=_name, module=OffsetKeypointModel)
 for _name in ("KeypointSwin3DVote", "VoteKeypointModel"):
     MODELS.register_module(name=_name, module=VoteKeypointModel)

@@ -54,15 +54,17 @@ def _dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 
 class SubMConv(nn.Module):
-    """Submanifold sparse conv over a precomputed kernel map, no bias; weight [K, Cin, Cout]."""
+    """Submanifold sparse conv over a precomputed kernel map; weight [K, Cin, Cout] and, with ``bias``
+    (JAX's ``use_bias``, OctFormer's CPE), a bias [Cout] added after the conv (`sparse_unet.py:55-68`)."""
 
-    def __init__(self, in_channels: int, features: int, kernel_size: int):
+    def __init__(self, in_channels: int, features: int, kernel_size: int, bias: bool = False):
         super().__init__()
         k = len(SparseConvSpec.cube(kernel_size).offsets)
         self.weight = nn.Parameter(torch.zeros(k, in_channels, features))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
     def forward(self, feat: torch.Tensor, kmap: KernelMap) -> torch.Tensor:
-        return sparse_conv(feat, kmap, self.weight)
+        return sparse_conv(feat, kmap, self.weight, self.bias)
 
 
 class BasicBlock(nn.Module):

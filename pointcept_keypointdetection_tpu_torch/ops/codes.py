@@ -30,3 +30,16 @@ def code_or_batch(code: torch.Tensor, batch: torch.Tensor, depth: int) -> torch.
 def code_fill_invalid(code: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Set invalid entries to CODE_MAX so they sort last."""
     return torch.where(valid, code, torch.full_like(code, CODE_MAX))
+
+
+def code_shr(code: torch.Tensor, shift: int) -> torch.Tensor:
+    """Right shift by a static number of bits, the batch bits included (`codes.py:48-62`); the codes
+    are non-negative, so the arithmetic shift is the logical one."""
+    if not 0 <= shift < 64:
+        raise ValueError(f"shift must be in [0, 64), got {shift}")
+    return code >> shift
+
+
+def code_lexsort(code: torch.Tensor) -> torch.Tensor:
+    """Stable ascending argsort of the codes (`codes.py:102-105`), int64 positions."""
+    return torch.sort(code, stable=True).indices

@@ -23,9 +23,12 @@ emulated in f64, which holds an f32 product exactly, and rounded once to
 f32.  So the card and the CPU give the same bits, no TF32 matmul can move a
 distance across ``radius^2``, and near-equal neighbours come in JAX's
 order.  The tensors stay on the caller's device; each sample costs a host
-read (its rows).  Not ported:
-``knn_bucketed``, ``ball_query``, ``three_nn_interpolate`` and the index
-builders.
+read (its rows).
+
+``three_nn_interpolate`` (`knn.py:531-558`, Swin3D's up-sampling) is the
+brute-force path over ``knn``: weights 1 / max(d^2, 1e-8), normalized.  Not
+ported: ``knn_bucketed`` (and so ``cell_size`` > 0), ``ball_query`` and the
+index builders.
 """
 
 from __future__ import annotations
@@ -103,3 +106,24 @@ def knn(
             idx[rows, :kk] = torch.where(far, 0, b_rows[cols]).to(torch.int32)
             sqd[rows, :kk] = torch.where(far, torch.full_like(vals, _BIG), vals)
     return idx, sqd
+
+
+def three_nn_interpolate(
+    query: torch.Tensor,  # [Q, 3] target positions
+    base: torch.Tensor,  # [N, 3] source positions
+    feat: torch.Tensor,  # [N, C] source features
+    query_batch: Optional[torch.Tensor] = None,
+    base_batch: Optional[torch.Tensor] = None,
+    base_valid: Optional[torch.Tensor] = None,
+    cell_size: float = 0.0,
+) -> torch.Tensor:
+    """Inverse-squared-distance weighted mean of the features of each query's 3 nearest valid base
+    points of its sample, [Q, C].  A missing neighbour (a sample with fewer than 3 valid base points)
+    is JAX's filler: row 0 at distance 1e10, a weight of ~0."""
+    if cell_size > 0:
+        raise NotImplementedError("three_nn_interpolate: cell_size > 0 needs knn_bucketed, not ported yet "
+                                  "(ROADMAP.md queue A item 1, with PT-v2m2)")
+    idx, sqdist = knn(query, base, 3, query_batch, base_batch, base_valid)
+    inv = 1.0 / sqdist.clamp_min(1e-8)
+    w = inv / inv.sum(-1, keepdim=True)
+    return (feat[idx.long()] * w[..., None]).sum(1)

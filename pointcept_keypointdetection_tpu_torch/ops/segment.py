@@ -22,11 +22,33 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     return out.index_add_(0, ids, rows)
 
 
+def _per_segment_mean(total: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    ones = total.new_ones(segment_ids.shape)
+    count = segment_sum(ones, segment_ids, num_segments).clamp_min(1)  # whole numbers: exact in any order
+    return total / count.reshape((num_segments,) + (1,) * (total.dim() - 1))
+
+
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    total = segment_sum(data, segment_ids, num_segments)
-    ones = data.new_ones((data.shape[0],))
-    count = segment_sum(ones, segment_ids, num_segments).clamp_min(1)
-    return total / count.reshape((num_segments,) + (1,) * (data.dim() - 1))
+    return _per_segment_mean(segment_sum(data, segment_ids, num_segments), segment_ids, num_segments)
+
+
+def segment_sum_in_order(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``segment_sum`` with each segment's rows added one after the other, in row order, on both devices,
+    as the CPU's ``index_add_`` (and JAX on the CPU) adds them: the card's ``index_add_`` adds with atomics,
+    in an order that changes from run to run, and ``index_put_`` with ``accumulate`` (a stable sort by
+    segment, then each segment's rows in turn) takes its place there; on the CPU ``index_put_`` splits the
+    rows between threads."""
+    rows, ids = _kept(data, segment_ids, num_segments)
+    out = data.new_zeros((num_segments,) + data.shape[1:])
+    if data.is_cuda:
+        return out.index_put_((ids,), rows, accumulate=True)
+    return out.index_add_(0, ids, rows)
+
+
+def segment_mean_in_order(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``segment_mean`` over ``segment_sum_in_order``: for sums that a discontinuity reads (Swin3D's
+    positions, which its cRSE floors and its 3-NN up-sampling weighs by inverse squared distance)."""
+    return _per_segment_mean(segment_sum_in_order(data, segment_ids, num_segments), segment_ids, num_segments)
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:

@@ -258,11 +258,22 @@ def test_convert_maps_each_head(reference, tmp_path):
 
 
 def test_unported_backbones_raise_where_built():
-    for cfg in (dict(type="KeypointSwin3D", backbone_conf=dict(type="Swin3D-v1m1", in_channels=4)),
-                dict(type="KeypointSwin3DVote", backbone_conf=dict(type="Swin3D-v1m1", in_channels=4)),
-                dict(type="KeypointOctFormer", backbone_conf=dict(type="OctFormer-v1m1", in_channels=4))):
+    """The heads over a backbone the port lacks raise where they are built; over the ported ones they build."""
+    for cfg in (dict(type="KeypointPTv2", backbone_conf=dict(type="PT-v2m2", in_channels=4)),
+                dict(type="KeypointPTv1", backbone_conf=dict(type="PT-v1", in_channels=4)),
+                dict(type="KeypointStratifiedTransformer", backbone_conf=dict(type="ST-v1m2", in_channels=4)),
+                dict(type="KeypointOACNNs", backbone_conf=dict(type="OA-CNNs", in_channels=4)),
+                dict(type="OffsetKeypointModel", backbone_conf=dict(type="PT-v2m2", in_channels=4))):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(cfg)
+    swin = dict(type="Swin3D-v1m1", in_channels=4, depths=(1,), channels=(16,), num_heads=(1,), window_sizes=(4,),
+                slot_divisors=(1,))
+    octformer = dict(type="OctFormer-v1m1", in_channels=4, channels=(16,), num_blocks=(1,), num_heads=(1,),
+                     slot_divisors=(1,))
+    for name, backbone in (("KeypointSwin3D", swin), ("KeypointSwin3DVote", swin), ("OffsetKeypointSwin3D", swin),
+                           ("KeypointOctFormer", octformer), ("OffsetKeypointOctFormer", octformer)):
+        model = build_model(dict(type=name, num_keypoints=K, backbone_conf=backbone))
+        assert model.head[0].in_features == model.backbone.out_channels == 16
     sparse = build_model(dict(type="KeypointSparseUNet", num_keypoints=K, backbone_conf=dict(
         type="SpUNet-v1m1", in_channels=4, num_classes=0, channels=(16, 16, 16, 16), layers=(1, 1, 1, 1))))
     assert sparse.head[0].in_features == 16
