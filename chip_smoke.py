@@ -9,11 +9,12 @@ recipe trained) and PointGroup instance segmentation (the committed
 r3 recipe and both ScanNet PointGroup recipes trained with the
 InsSegEvaluator), the global keypoint heads (``serve --task keypoint``,
 the KeypointPTv3Plus recipe and the other pig recipes trained through the
-fork's readers, ``infer_offset``), and OctFormer and Swin3D (served and
+fork's readers, ``infer_offset``), OctFormer and Swin3D (served and
 trained as the fork's configs write them) with the pig users' four tools
 (``inference_split``, ``batch_infer_export_txt``, ``infer_npy``,
-``evaluate_all_splits``) on one NVIDIA GPU, and hold its hand-written
-kernels against their plain versions.
+``evaluate_all_splits``), and OA-CNNs, PT-v2m2, PT-v1 and ST-v1m2 (served
+and trained as the fork's configs write them) on one NVIDIA GPU, and hold
+its hand-written kernels against their plain versions.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -230,7 +231,20 @@ Phases, each fatal on failure:
      ``offset_keypoint_swin3d.py``; ``infer_npy`` on a ~30k-point pig scene
      with ``semseg-octformer-v1m1-0-base.py``; ``evaluate_all_splits`` over
      ``semseg-spunet-r3-test.py`` with ``exp/semseg_r3`` (train and val);
- 41. summary: the script's duration, the kernels line (per keypoint training
+ 41. the fork's last four keypoint backbones: ``keypoint_oa_cnns.py``
+     (OA-CNNs: B3 23 per request, 4 rulebooks), ``keypoint_ptv2.py``
+     (PT-v2m2, brute kNN at slot 8192), ``keypoint_ptv1.py`` (PT-v1, farthest
+     point sampling) and ``keypoint_stratified_transformer.py`` (ST-v1m2, the
+     KPConv stem over ``knn_bucketed``) served as phase 37 (the first reply
+     against the CPU's), FPS's and the kNN searches' host-clock share of a
+     request, each recipe trained through ``KeypointDataset`` on the written
+     clouds as phase 38 (OA-CNNs B3 45, B4 23, 4 rulebooks a step; the others
+     no kernel), one step of each card against CPU at batch 2 with one Block
+     per stage, and B3 and B4 at every OA-CNNs conv shape (K = 27, Cin ->
+     Cout 4 -> 32 through 256 -> 128) on the maps of a step and a request,
+     f32 against their plain versions, bit for bit, timed per step and per
+     request beside the gather + ``torch.matmul`` and the bound;
+ 42. summary: the script's duration, the kernels line (per keypoint training
      step: launches, errors and times of the training levels; B1 and B3 also
      per bench forward in bf16; B1-B4 per pigseg step, ``pigseg_*``, and per
      amp step, ``amp_*``; per r3 step, ``r3_step_*``, and B1 and B3 per r3
@@ -242,7 +256,9 @@ Phases, each fatal on failure:
      amp step, ``insseg_amp_*``; B1-B4 per KeypointPTv3Plus step,
      ``kp_plus_step_*``, and B1 and B3 per request, ``kp_plus_request_*``;
      B3 and B4 per OctFormer step, ``octformer_step_*``, and B3 per request,
-     ``octformer_request_*``), then ``{"ok": true, "device": ...}`` last.
+     ``octformer_request_*``; B3 and B4 per OA-CNNs step, ``oacnns_step_*``,
+     and B3 per request, ``oacnns_request_*``), then ``{"ok": true,
+     "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -296,7 +312,10 @@ from pointcept_keypointdetection_tpu_torch.kernels import _build
 from pointcept_keypointdetection_tpu_torch.kernels import patch_attention as pa
 from pointcept_keypointdetection_tpu_torch.kernels import sparse_conv as sc
 from pointcept_keypointdetection_tpu_torch.models import build_model, cast_parameters, init_weights
+from pointcept_keypointdetection_tpu_torch.models import octformer as octformer_module
+from pointcept_keypointdetection_tpu_torch.models import point_transformer, point_transformer_v2
 from pointcept_keypointdetection_tpu_torch.models import sparse_unet as spunet_module
+from pointcept_keypointdetection_tpu_torch.models import stratified_transformer
 from pointcept_keypointdetection_tpu_torch.models.losses import build_criteria
 from pointcept_keypointdetection_tpu_torch.ops import cluster as cluster_module
 from pointcept_keypointdetection_tpu_torch.ops import sparse as sp
@@ -1038,6 +1057,68 @@ class ReluTies:
         return self.replay(follow=False)
 
 
+class MaxTies:
+    """Holds the card's step to the CPU's winners of every segment max that rounding decides.
+
+    A max routes its gradient to the row that wins, so where two rows of a segment lie within rounding of
+    each other, two right f32 steps may route it to either (a pooling of ~60,000 rows has a few such
+    segments).  ``record`` keeps the CPU's winners (the rows equal to their segment's max) of each call of
+    the ``segment_max`` that ``sites`` ((module, name) pairs) name, in order; ``replay`` runs the card's
+    step with them, the max taken over the CPU's winners only, and raises where a winner differs at a row
+    farther than RELU_TIE x max(1, max|out|) from its segment's max.  ``ties`` lists each winner that
+    differs: (call, [row, channel], its distance from the max)."""
+
+    def __init__(self, sites, winners=None):
+        self.sites, self.winners, self.calls, self.ties = sites, [] if winners is None else winners, 0, []
+
+    @contextlib.contextmanager
+    def _patched(self, wrap):
+        plain = [getattr(module, name) for module, name in self.sites]
+        for (module, name), fn in zip(self.sites, plain):
+            setattr(module, name, wrap(fn))
+        try:
+            yield self
+        finally:
+            for (module, name), fn in zip(self.sites, plain):
+                setattr(module, name, fn)
+
+    @staticmethod
+    def _winners(plain, data, ids, m):
+        out = plain(data, ids, m)
+        keep = (ids >= 0) & (ids < m)
+        win = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
+        win[keep] = data[keep] == out[ids[keep]]
+        return out, win
+
+    def record(self):
+        def wrap(plain):
+            def segment_max(data, ids, m):
+                out, win = self._winners(plain, data.detach(), ids, m)
+                self.winners.append(win.cpu())
+                return plain(data, ids, m)
+            return segment_max
+        return self._patched(wrap)
+
+    def replay(self):
+        def wrap(plain):
+            def segment_max(data, ids, m):
+                ref = self.winners[self.calls].to(data.device)
+                out, win = self._winners(plain, data.detach(), ids, m)
+                differ = (ref != win).nonzero()
+                if len(differ):
+                    gap = (data.detach()[differ[:, 0], differ[:, 1]] - out[ids[differ[:, 0]], differ[:, 1]]).abs()
+                    slack = RELU_TIE * max(1.0, out[torch.isfinite(out)].abs().max().item())
+                    if gap.max().item() > slack:
+                        raise AssertionError(f"segment max call {self.calls}: a winner differs between card and CPU "
+                                             f"{gap.max().item():.3e} from its max, past the tie width {slack:.3e}")
+                    self.ties += [(self.calls, pos, g) for pos, g in zip(differ.tolist(), gap.tolist())]
+                self.calls += 1
+                neg = torch.full((), float("-inf"), dtype=data.dtype, device=data.device)
+                return plain(torch.where(ref, data, neg), ids, m)
+            return segment_max
+        return self._patched(wrap)
+
+
 @contextlib.contextmanager
 def cpu_order_sums():
     """SpUNet's segment sums (StridedConvDown's parent sums) in the CPU's row order on the card
@@ -1051,7 +1132,8 @@ def cpu_order_sums():
         spunet_module.segment_sum = plain
 
 
-def compare_step(label: str, model_cfg, batch_np, dtype: torch.dtype, tol: float, relu_ties: bool = False) -> dict:
+def compare_step(label: str, model_cfg, batch_np, dtype: torch.dtype, tol: float, relu_ties: bool = False,
+                 max_sites=()) -> dict:
     """One training step, card against CPU, with the same seeded weights and batch: features in
     ``dtype`` (parameters f32, as ``amp`` has them), the loss, every gradient and the running
     statistics, each relative to max(1, |cpu|) within ``tol``; returns the worst of each kind.
@@ -1060,7 +1142,8 @@ def compare_step(label: str, model_cfg, batch_np, dtype: torch.dtype, tol: float
     With ``relu_ties`` (the SpUNet steps) the card's step runs first as the path runs and then twice
     with its segment sums in the CPU's row order (``cpu_order_sums``): their gradient errors are
     printed, and whether those two repeat bit for bit; the step held to ``tol`` is then the card's
-    with the CPU's side taken at every ReLU tie (``ReluTies``), each tie printed."""
+    with the CPU's side taken at every ReLU tie (``ReluTies``), each tie printed, and with ``max_sites``
+    also at every tie of those segment maxes' winners (``MaxTies``)."""
     cpu_model = init_weights(build_model(model_cfg), torch.Generator().manual_seed(3))
     initial = copy.deepcopy(cpu_model.state_dict())
 
@@ -1070,8 +1153,8 @@ def compare_step(label: str, model_cfg, batch_np, dtype: torch.dtype, tol: float
         with context or contextlib.nullcontext():
             return step_tensors(model.cuda(), batch_np, "cuda", dtype, label)
 
-    ties = ReluTies()
-    with ties.record() if relu_ties else contextlib.nullcontext():
+    ties, max_ties = ReluTies(), MaxTies(max_sites)
+    with ties.record() if relu_ties else contextlib.nullcontext(), max_ties.record():
         cpu = step_tensors(cpu_model, batch_np, "cpu", dtype, label)
     card = card_step()
     if relu_ties:
@@ -1088,9 +1171,15 @@ def compare_step(label: str, model_cfg, batch_np, dtype: torch.dtype, tol: float
               f"ReLU decisions that differ from the CPU's: {watched.ties[:12]} (call, [row, channel], the card's "
               f"input)")
         del ordered
-        card = card_step(ties.replay())
-        if ties.calls != len(ties.masks):
-            raise AssertionError(f"{label}: the CPU made {len(ties.masks)} ReLU calls, the card {ties.calls}")
+        with max_ties.replay():
+            card = card_step(ties.replay())
+        if ties.calls != len(ties.masks) or max_ties.calls != len(max_ties.winners):
+            raise AssertionError(f"{label}: the CPU made {len(ties.masks)} ReLU and {len(max_ties.winners)} segment "
+                                 f"max calls, the card {ties.calls} and {max_ties.calls}")
+        if max_sites:
+            print(f"{label}: {len(max_ties.ties)} segment max winners differ between card and CPU over "
+                  f"{max_ties.calls} calls, each within {RELU_TIE:g} x max(1, max|max|) of its max, and the card's "
+                  f"step takes the CPU's winners: {max_ties.ties[:8]} (call, [row, channel], distance) {stamp()}")
         print(f"{label}: {len(ties.ties)} of {ties.decisions} ReLU decisions differ between card and CPU, each at an "
               f"input within {RELU_TIE:g} x max(1, max|x|) of 0, and the card's step takes the CPU's side there: "
               f"{ties.ties[:8]} (call, [row, channel], the card's input) {stamp()}")
@@ -2657,14 +2746,14 @@ def keypoint_backbone(cfg) -> dict:
     return dict(cfg.model.get("backbone_conf") or cfg.model.backbone)
 
 
-def phase_kp_serve(config: str, task: str = "keypoint", expect=None) -> dict:
+def phase_kp_serve(config: str, task: str = "keypoint", expect=None, cpu_clouds: int = REQUESTS) -> dict:
     """``serve --task keypoint`` (or ``task``) with a keypoint recipe at full width, slot 8192, seeded
     weights: 1 warm-up and 3 POSTs of body-like clouds (B1 and B3 once per Block, one rulebook per level,
     or ``expect`` for ``phase_serve``), one request under torch.profiler, and the card's reply against the
     CPU port's on each cloud with the same weights and np.random seeded alike (the padding subsamples
-    clouds past the slot), within CPU_TOL x the cloud's scale (mm); an offset head's through ``phase_cpu``
-    (its outputs, and its keypoints apart only on an argmax tie).  Returns the latencies, launches,
-    profile and a request's maps (none where the backbone builds no kernel map)."""
+    clouds past the slot), within CPU_TOL x the cloud's scale (mm), on the first ``cpu_clouds`` clouds; an
+    offset head's through ``phase_cpu`` (its outputs, and its keypoints apart only on an argmax tie).  Returns
+    the latencies, launches, profile and a request's maps (none where the backbone builds no kernel map)."""
     cfg = Config.fromfile(config)
     predictor = serve.build_predictor(task, cfg, None, cfg.slot_size, "cuda")
     rng = np.random.default_rng(19)
@@ -2690,7 +2779,7 @@ def phase_kp_serve(config: str, task: str = "keypoint", expect=None) -> dict:
         del predictor, cpu
         torch.cuda.empty_cache()
         return dict(latencies=latencies, counts=counts, profile=prof, maps=maps)
-    for i, c in enumerate(clouds):
+    for i, c in enumerate(clouds[:cpu_clouds]):
         replies = []
         for p in (predictor, cpu):
             np.random.seed(23 + i)
@@ -3267,6 +3356,210 @@ def phase_backbones(kernels: list) -> None:
         print(f"{name}: wall time (host clock) {', '.join(f'{k} {v:.2f} s' for k, v in seconds.items())} {stamp()}")
 
 
+# ---- the fork's last four keypoint backbones: OA-CNNs, PT-v2m2, PT-v1, ST-v1m2 (phase 41) ---------------
+
+LAST_CONFIGS = {"oacnns": "configs/my_dataset/keypoint_oa_cnns.py", "ptv2": "configs/my_dataset/keypoint_ptv2.py",
+                "ptv1": "configs/my_dataset/keypoint_ptv1.py",
+                "stratified": "configs/my_dataset/keypoint_stratified_transformer.py"}
+# each backbone's depth options, set to one Block (or layer) per stage in the card-vs-CPU step, and its drop path
+DEPTH_KEYS = {"OA-CNNs": ("layers",), "PT-v2m2": ("enc_depths", "dec_depths"), "PT-v1": ("blocks",),
+              "ST-v1m2": ("depths",)}
+DROP_PATH_KEYS = {"PT-v2m2": "drop_path_rate", "ST-v1m2": "drop_path_rate"}
+
+
+def oacnns_convs(bb) -> list:
+    """[(level, Cin, Cout, convs)] of one OA-CNNs forward: the stem (Cin the input's, padded to 8 on the
+    card), each encoder BasicBlock's two convs, each decoder block's two (Cin = 2C, then C)."""
+    base, channels, layers = bb.get("base_channels", 32), bb["channels"], bb["layers"]
+    convs = [(0, bb["in_channels"], base, 1)]
+    for s, c in enumerate(channels):
+        for i in range(layers[s]):
+            convs += [(s, base if s == 0 and i == 0 else c, c, 1), (s, c, c, 1)]
+    for s in range(len(channels) - 1):
+        convs += [(s, 2 * channels[s], channels[s], 1), (s, channels[s], channels[s], 1)]
+    merged = {}
+    for level, cin, cout, n in convs:
+        merged[(level, cin, cout)] = merged.get((level, cin, cout), 0) + n
+    return [(level, cin, cout, n) for (level, cin, cout), n in merged.items()]
+
+
+def phase_oacnns_kernels(bb, batch: int, step_maps: dict, request_maps: dict, step: dict, request: dict) -> dict:
+    """B3 and B4 at every OA-CNNs conv shape (K = 27; Cin -> Cout 4 (padded to 8) -> 32, 32 -> 32, 64 -> 64,
+    128 -> 128, 64 -> 32, 128 -> 64, 256 -> 128) on its maps at every level of a training batch and of a
+    request, in f32 against their plain versions and bit for bit run to run: B3 forward, B3 at the input
+    gradient's mirrored shape (Cout -> Cin; none for the stem, whose input needs no gradient) and B4; the
+    stem through ``SubmConvFunction`` as the path runs it.  Each timed beside its plain version, the gather
+    + torch.matmul and the bound, summed per step and per request; each map's rulebook build timed.  The
+    sums' launches are checked against one step's and one request's counts.  Returns {"step": sums,
+    "request": sums, "errors": each kernel's largest error}."""
+    rng = np.random.default_rng(47)
+    convs = oacnns_convs(bb)
+    caps = [max(8192 // d, 16) for d in bb.get("slot_divisors", (1, 2, 4, 8))]
+    errors = dict.fromkeys(("subm_conv_fwd", "subm_conv_dw"), 0.0)
+    sums = {"step": {}, "request": {}}
+    launches = {"step": dict.fromkeys(errors, 0), "request": dict.fromkeys(errors, 0)}
+    for key, maps, b in (("step", step_maps, batch), ("request", request_maps, 1)):
+        if sorted(maps) != sorted(cap * b for cap in caps):
+            raise AssertionError(f"OA-CNNs {key}: maps at N = {sorted(maps)}, expected {caps} x {b}")
+        timed = {}
+        for level, cin, cout, count in convs:
+            idx = maps[caps[level] * b]
+            if idx.shape[1] != 27:
+                raise AssertionError(f"OA-CNNs {key} map N={idx.shape[0]} has K={idx.shape[1]}")
+            stem = level == 0 and cin == bb["in_channels"]
+            # (kernel, Cin, Cout, launches): the forward, and in a step the input gradient's and B4
+            runs = [("subm_conv_fwd", cin, cout, count)]
+            if key == "step":
+                runs += [("subm_conv_dw", cin, cout, count)] + ([] if stem else [("subm_conv_fwd", cout, cin, count)])
+                if stem:
+                    for name, err in check_stem(rng, idx, cin, cout, torch.float32).items():
+                        errors[name] = max(errors[name], err)
+                else:
+                    errors["subm_conv_dw"] = max(errors["subm_conv_dw"],
+                                                 check_conv_dw(rng, idx, cout, torch.float32, cin))
+            for name, ci, co, n in runs:
+                if name == "subm_conv_fwd" and (level, ci, co) not in timed:
+                    errors[name] = max(errors[name], check_conv(rng, idx, co, torch.float32, ci))
+                    check_conv_bits(rng, idx, co, torch.float32, ci)
+                shape = (name, level, ci, co)
+                if shape not in timed:
+                    print(f"OA-CNNs {key} level {level} N={idx.shape[0]} K=27 Cin={ci} Cout={co} {name} f32 "
+                          f"(x{n} per {key}):")
+                    timed[shape] = time_conv(rng, idx, co, torch.float32, dw=name == "subm_conv_dw", cin=ci)
+                    timed[(level, ci, co)] = True
+                add_row(sums[key], name, timed[shape], n)
+                launches[key][name] += n
+        books = [time_rulebook(idx) for idx in maps.values()]
+        print(f"rulebook builds per OA-CNNs {key} ({len(books)} K = 27 maps): "
+              f"{sum(r['ms'] for r in books):.4f} ms (host clock), device {sum(r['device_ms'] for r in books):.4f} "
+              f"ms, bound {sum(r['bound_ms'] for r in books):.4f} ms {stamp()}")
+        for name, t in sums[key].items():
+            counted = (step if key == "step" else request)[name]
+            if launches[key][name] != counted:
+                raise AssertionError(f"OA-CNNs {key}: {name} timed for {launches[key][name]} launches, the path "
+                                     f"made {counted}")
+            t["launches"] = counted
+            print(f"{name} per OA-CNNs {key} (f32, K=27, sum over its {counted} launches): kernel {t['ms']:.4f} ms, "
+                  f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"{stamp()}")
+    return dict(sums, errors=errors)
+
+
+def phase_last_step_cpu(label: str, cfg) -> dict:
+    """One training step of a keypoint recipe over OA-CNNs, PT-v2m2, PT-v1 or ST-v1m2 at its widths and slot,
+    one Block (or layer) per stage, no drop path, batch KP_CPU_BATCH of its data (np.random seeded 5), card
+    against CPU in f32 within TRAIN_CPU_TOL, the card on the CPU's side of each ReLU tie and of each tie of a
+    segment max's winners."""
+    bb = keypoint_backbone(cfg)
+    # the backbones' segment maxes: PT-v2m2's grid pooling, ST-v1m2's (OctFormer's pool_parents)
+    sites = ((point_transformer_v2, "segment_max"), (octformer_module, "segment_max"))
+    depths = {key: (1,) * len(bb[key]) for key in DEPTH_KEYS[bb["type"]]}
+    if bb["type"] in DROP_PATH_KEYS:
+        depths[DROP_PATH_KEYS[bb["type"]]] = 0.0
+    model_cfg = dict(cfg.model)
+    model_cfg["backbone_conf"] = dict(bb, **depths)
+    np.random.seed(5)
+    ds = build_dataset(dict(cfg.data.train))
+    batch_np = collate([ds[i] for i in range(KP_CPU_BATCH)], cfg.slot_size, np.random)
+    return compare_step(label, model_cfg, batch_np, torch.float32, TRAIN_CPU_TOL, relu_ties=True, max_sites=sites)
+
+
+def timed_share(predictor, cloud: np.ndarray, module, name: str) -> dict:
+    """One request with ``module.name`` (FPS, a kNN search) timed on the host clock, the card synchronized
+    around each call, beside the request's own host-clock time: (ms in the calls, calls, request ms)."""
+    plain, spent = getattr(module, name), []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predictor.predict(cloud[:, :3], cloud[:, 3:])
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        setattr(module, name, plain)
+    return dict(ms=sum(spent), calls=len(spent), request_ms=total)
+
+
+def phase_last_backbones(kernels: list) -> None:
+    """Phase 41: OA-CNNs, PT-v2m2, PT-v1 and ST-v1m2 served and trained as the fork's configs write them,
+    a step of each card against CPU, FPS's and the brute kNN's share of a request, and B3 and B4 at every
+    OA-CNNs shape; adds ``oacnns_step_*`` and ``oacnns_request_*`` to the kernels line."""
+    oa_bb = dict(Config.fromfile(LAST_CONFIGS["oacnns"]).model.backbone_conf)
+    convs = oacnns_convs(oa_bb)
+    forward = sum(n for *_, n in convs)  # 23
+    stem = sum(n for level, cin, _, n in convs if level == 0 and cin == oa_bb["in_channels"])
+    stages = len(oa_bb["channels"])
+    # B3 once per conv in a request; in a step B3 forward and for every input gradient but the stem's, B4 once
+    oa_step = {"patch_attention_fwd": 0, "patch_attention_bwd": 0, "subm_conv_fwd": 2 * forward - stem,
+               "subm_conv_dw": forward}
+    print(f"OA-CNNs: {forward} B3 launches a request; a step (batch 8): B3 {oa_step['subm_conv_fwd']}, B4 "
+          f"{oa_step['subm_conv_dw']}; {stages} rulebooks; conv shapes (level, Cin, Cout, convs) {convs}")
+    none = (dict.fromkeys(oa_step, 0), 0)
+    served, shares = {}, {}
+    for key, config in LAST_CONFIGS.items():
+        served[key] = phase_kp_serve(config, "keypoint", (0, forward, stages) if key == "oacnns" else (0, 0, 0),
+                                     cpu_clouds=1)
+    for key, module, name in (("ptv1", point_transformer, "farthest_point_sampling_batched"),
+                              ("ptv1", point_transformer, "knn"), ("ptv2", point_transformer_v2, "knn"),
+                              ("stratified", stratified_transformer, "knn_bucketed")):
+        cfg = Config.fromfile(LAST_CONFIGS[key])
+        predictor = serve.build_predictor("keypoint", cfg, None, cfg.slot_size, "cuda")
+        cloud = request_cloud(np.random.default_rng(59), CLOUD_POINTS)
+        predictor.predict(cloud[:, :3], cloud[:, 3:])
+        shares[(key, name)] = timed_share(predictor, cloud, module, name)
+        del predictor
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        write_keypoint_clouds(root)
+        trained, batch = {}, None
+        for key, config in LAST_CONFIGS.items():
+            cfg = recipe_config(config, root, os.path.join(root, f"exp_{key}"))
+            trained[key] = phase_kp_train(f"{key} recipe train", cfg, (oa_step, stages) if key == "oacnns" else none,
+                                          probe=True)
+            phase_last_step_cpu(f"{key} recipe", cfg)
+            batch = batch or cfg.batch_size
+        step = trained["oacnns"]["steps"][-1]
+        request = {name: served["oacnns"]["counts"].get(name, 0) // REQUESTS for name in oa_step}
+        conv = phase_oacnns_kernels(oa_bb, batch, trained["oacnns"].pop("maps"), served["oacnns"].pop("maps"), step,
+                                    request)
+    bound_by = lambda t: "operations" if t["t_ops"] >= t["t_bytes"] else "bytes"  # noqa: E731
+    for row in kernels:
+        name = row["name"]
+        row["oacnns_step_launches"], row["oacnns_request_launches"] = step[name], request[name]
+        if name in conv["step"]:
+            t = conv["step"][name]
+            row.update({"oacnns_step_max_abs_err": conv["errors"][name], "oacnns_step_ms": t["ms"],
+                        "oacnns_step_plain_ms": t["plain_ms"], "oacnns_step_library_ms": t["library_ms"],
+                        "oacnns_step_bound_ms": t["bound_ms"], "oacnns_step_bound_by": bound_by(t)})
+        if name in conv["request"]:
+            t = conv["request"][name]
+            row.update({"oacnns_request_ms": t["ms"], "oacnns_request_plain_ms": t["plain_ms"],
+                        "oacnns_request_library_ms": t["library_ms"], "oacnns_request_bound_ms": t["bound_ms"],
+                        "oacnns_request_bound_by": bound_by(t)})
+    for name, s in served.items():
+        print(f"{name} serve: request median {statistics.median(s['latencies']):.2f} ms, launches per request "
+              f"{ {k: v // REQUESTS for k, v in s['counts'].items()} }; profiled request busy "
+              f"{s['profile']['busy_ms']:.2f} ms, idle share {s['profile']['idle_share']:.3f} {stamp()}")
+    for (key, name), t in shares.items():
+        print(f"{key} request: {name} {t['ms']:.2f} ms in {t['calls']} calls of a {t['request_ms']:.2f} ms request "
+              f"(host clock, the card synchronized around each call): share {t['ms'] / t['request_ms']:.3f} {stamp()}")
+    for name, run in trained.items():
+        prof = run["profile"]
+        print(f"{name} recipe: step median {statistics.median(run['step_ms'][1:]):.2f} ms (host clock, steps "
+              f"2-{len(run['step_ms'])}), peak memory {run['peak_bytes'] / 2**30:.2f} GiB, slot fill "
+              f"{run['fill']:.3f}, profiled step busy {prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f}, "
+              f"{prof['kernels']} kernels {stamp()}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -3402,6 +3695,7 @@ def main() -> None:
           f"on the card {stamp()}")
     phase_keypoint_heads(kernels, per_request)
     phase_backbones(kernels)
+    phase_last_backbones(kernels)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s {stamp()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,22 @@ arrays (what ``flax`` holds, or a checkpoint reader returns).  The rules:
   ``batch_stats``), the cRSE tables ``attn.{xyz, rgb, norm}_{q, k, v}_table``,
   ``down{s}.norm``, ``up{s}.{proj, proj_skip, norm}`` and ``dec{s}_block``.
   The CPE's ``weight`` [27, C, C] keeps the JAX layout and its ``bias`` its name.
+* OA-CNNs, PT-v2m2, PT-v1 and ST-v1m2 (``models/oacnns.py``,
+  ``models/point_transformer_v2.py``, ``models/point_transformer.py``,
+  ``models/stratified_transformer.py``): ``OACNNs_0``,
+  ``PointTransformerV2_0``, ``PointTransformerV1_0`` and
+  ``StratifiedTransformer_0`` are ``backbone``, and every explicit flax name
+  stays.  flax's call-order names inside a block take the port's, by
+  backbone: an OA-CNNs ``enc{s}_block{i}`` / ``dec{s}_block``'s
+  ``SubMConv_0``, ``SubMConv_1``, ``Dense_0`` are ``conv1``, ``conv2``,
+  ``proj``; a PT-v1 ``enc{s}_block{i}`` / ``dec{s}_block``'s ``Dense_0``,
+  ``MaskedBatchNorm_0``, ``VectorAttentionLayer_0``, ``MaskedBatchNorm_1``,
+  ``Dense_1``, ``MaskedBatchNorm_2``, ``Dense_2`` are ``fc1``, ``norm1``,
+  ``attn``, ``norm2``, ``fc3``, ``norm3``, ``proj``, its ``enc{s}_down``'s
+  ``Dense_0``, ``MaskedBatchNorm_0`` are ``fc``, ``norm`` and its
+  ``dec{s}_up``'s ``Dense_0``, ``MaskedBatchNorm_0``, ``Dense_1``,
+  ``MaskedBatchNorm_1`` are ``fc1``, ``norm1``, ``fc2``, ``norm2``.  The
+  KPConv stem's ``weight`` [15, Cin, Cout] keeps the JAX layout.
 
 ``load_jax_checkpoint`` reads a flax-msgpack checkpoint of the JAX package
 (``utils/checkpoint.py``, no ``msgpack`` package needed) and converts its
@@ -60,7 +76,8 @@ _PARENT_RENAMES = {
     ("mlp", "Dense_0"): "fc1",
     ("mlp", "Dense_1"): "fc2",
 }
-_BACKBONES = ("PointTransformerV3_0", "SpUNet_0", "OctFormer_0", "Swin3DUNet_0")
+_BACKBONES = ("PointTransformerV3_0", "SpUNet_0", "OctFormer_0", "Swin3DUNet_0", "OACNNs_0", "PointTransformerV2_0",
+              "PointTransformerV1_0", "StratifiedTransformer_0")
 # (parent pattern, child pattern, the port's name): SpUNet's call-order names
 _NUMBERED = tuple((re.compile(parent), re.compile(child), name) for parent, child, name in (
     (r"^SpUNet_0$", r"^SubMConv_0$", "stem"),
@@ -72,6 +89,17 @@ _NUMBERED = tuple((re.compile(parent), re.compile(child), name) for parent, chil
     (r"^BasicBlock_\d+$", r"^SubMConv_0$", "conv1"),
     (r"^BasicBlock_\d+$", r"^SubMConv_1$", "conv2"),
     (r"^BasicBlock_\d+$", r"^Dense_0$", "proj"),
+))
+_BLOCK = r"^(enc\d+_block\d+|dec\d+_block)$"
+# (backbone, parent pattern, {flax child name: the port's}): call-order names inside one backbone's blocks
+_IN_BACKBONE = tuple((backbone, re.compile(parent), names) for backbone, parent, names in (
+    ("OACNNs_0", _BLOCK, {"SubMConv_0": "conv1", "SubMConv_1": "conv2", "Dense_0": "proj"}),
+    ("PointTransformerV1_0", _BLOCK, {"Dense_0": "fc1", "MaskedBatchNorm_0": "norm1", "VectorAttentionLayer_0": "attn",
+                                      "MaskedBatchNorm_1": "norm2", "Dense_1": "fc3", "MaskedBatchNorm_2": "norm3",
+                                      "Dense_2": "proj"}),
+    ("PointTransformerV1_0", r"^enc\d+_down$", {"Dense_0": "fc", "MaskedBatchNorm_0": "norm"}),
+    ("PointTransformerV1_0", r"^dec\d+_up$", {"Dense_0": "fc1", "MaskedBatchNorm_0": "norm1", "Dense_1": "fc2",
+                                               "MaskedBatchNorm_1": "norm2"}),
 ))
 
 
@@ -98,10 +126,13 @@ def _unstack(path: Tuple[str, ...], value: np.ndarray):
 
 def _rename(path: Tuple[str, ...]) -> Tuple[str, ...]:
     out = []
+    backbone = next((part for part in path if part in _BACKBONES), None)
     for i, part in enumerate(path):
         parent = path[i - 1] if i > 0 else None
         numbered = [child.sub(name, part) for pattern, child, name in _NUMBERED
                     if parent is not None and pattern.match(parent) and child.match(part)]
+        numbered += [names[part] for owner, pattern, names in _IN_BACKBONE
+                     if owner == backbone and parent is not None and pattern.match(parent) and part in names]
         if part in _BACKBONES:
             part = "backbone"
         elif i == 0 and part.startswith("Dense_"):

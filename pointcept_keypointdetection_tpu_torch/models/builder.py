@@ -20,8 +20,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights with the flax initialisers' scales.
 
     Linear: truncated lecun normal (std 1/sqrt(fan_in), cut at 2 std), zero
-    bias.  Sparse-conv weights (3-d ``weight`` / ``stem_weight``) and Swin3D's
-    4-d cRSE tables: truncated normal 0.02 cut at +-0.04.  Norms keep ones,
+    bias.  Sparse-conv and KPConv weights (3-d ``weight`` / ``stem_weight``),
+    Swin3D's 4-d cRSE tables and ST-v1m2's 2-d ``rpe_table``: truncated
+    normal 0.02 cut at +-0.04.  Norms keep ones,
     zeros and unit running variance.  ``generator`` must live on the
     parameters' device."""
     for module in model.modules():
@@ -31,7 +32,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if module.bias is not None:
                 module.bias.zero_()
     for name, param in model.named_parameters():
-        if param.dim() >= 3:
+        if param.dim() >= 3 or name.endswith("rpe_table"):
             nn.init.trunc_normal_(param, std=0.02, a=-0.04, b=0.04, generator=generator)
     return model
 

@@ -17,9 +17,9 @@
   and their mean vote as the prediction.
 
 The heads' Dense layers are flax's without a ``dtype`` (``PromotedDense``).
-The ported backbones are PT-v3m1, PT-v3plus, SpUNet, OctFormer-v1m1 and
-Swin3D-v1m1; a head over one the port lacks (PT-v2m2, PT-v1, ST-v1m2,
-OA-CNNs) raises where it is built.  The head modules keep flax's call
+The ported backbones are PT-v3m1, PT-v3plus, SpUNet, OctFormer-v1m1,
+Swin3D-v1m1, OA-CNNs, PT-v2m2, PT-v1 and ST-v1m2, all that the fork's
+configs name; a head over one the port lacks raises where it is built.  The head modules keep flax's call
 order: ``head.{2i}`` is ``Dense_{i}`` (``convert.py``); ``KeypointModel``'s
 ``head.1`` is its ``MaskedBatchNorm_0`` and ``head.3`` its Dropout.
 """

@@ -30,7 +30,8 @@ is atomic, so two runs need not agree bit for bit.  Dense layers are
 flax ``nn.Dense`` without a dtype, norms the JAX package's, gelu flax's tanh
 approximation; module and parameter names are the flax names
 (``convert.py``).  Drop path draws from the caller's ``torch.Generator``.
-Not ported: ``upsample_cell_sizes`` (the bucketed 3-NN) raises.
+``upsample_cell_sizes`` gives a decoder level the bucketed 3-NN
+(``knn_bucketed`` at that cell, cell cap 64) in place of the brute one.
 """
 
 from __future__ import annotations
@@ -170,15 +171,16 @@ class KnnUpsample(nn.Module):
     """3-NN interpolation of the projected coarse features onto the skip's rows, plus the projected skip,
     normalized (`swin3d.py:234-248`)."""
 
-    def __init__(self, in_channels: int, skip_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, skip_channels: int, out_channels: int, knn_cell_size: float = 0.0):
         super().__init__()
+        self.knn_cell_size = knn_cell_size
         self.proj = PromotedDense(in_channels, out_channels)
         self.proj_skip = PromotedDense(skip_channels, out_channels)
         self.norm = LayerNorm(out_channels)
 
     def forward(self, pooled: PointBatch, skip: PointBatch) -> PointBatch:
         interp = three_nn_interpolate(skip.coord, pooled.coord, self.proj(pooled.feat), skip.batch, pooled.batch,
-                                      pooled.valid)
+                                      pooled.valid, cell_size=self.knn_cell_size)
         return skip.replace(feat=self.norm(interp + self.proj_skip(skip.feat)))
 
 
@@ -193,9 +195,6 @@ class Swin3DUNet(nn.Module):
                  slot_divisors: Sequence[int] = (1, 2, 4, 8), num_classes: int = 0, crse: str = "XYZ_RGB",
                  quant_size: int = 4, voxel_size: float = 0.05):
         super().__init__()
-        if any(cell > 0 for cell in upsample_cell_sizes):
-            raise NotImplementedError("Swin3D-v1m1: upsample_cell_sizes (the bucketed 3-NN, knn_bucketed) is not "
-                                      "ported yet")
         self.depths, self.channels = tuple(depths), tuple(channels)
         self.patch_size, self.slot_divisors, self.voxel_size = patch_size, tuple(slot_divisors), voxel_size
         self.embed = PromotedDense(in_channels, channels[0])
@@ -213,7 +212,8 @@ class Swin3DUNet(nn.Module):
                 self.add_module(f"stage{s}_block{i}", block(s, i % 2 == 1, drop_path_rate * blk / max(total - 1, 1)))
                 blk += 1
         for s in reversed(range(len(depths) - 1)):
-            self.add_module(f"up{s}", KnnUpsample(channels[s + 1], channels[s], channels[s]))
+            cell = upsample_cell_sizes[s] if len(upsample_cell_sizes) > s else 0.0
+            self.add_module(f"up{s}", KnnUpsample(channels[s + 1], channels[s], channels[s], cell))
             self.add_module(f"dec{s}_block", block(s, False, 0.0))
         self.head = PromotedDense(channels[0], num_classes) if num_classes > 0 else None
         self.out_channels = num_classes if num_classes > 0 else channels[0]

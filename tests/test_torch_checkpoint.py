@@ -8,7 +8,7 @@ into the r3 model with ``strict=True``; that model against JAX's
 ``model.apply`` with flax-loaded weights on a val scene of
 ``configs/synthetic/offset-keypoint-r3.py``; the port's keypoint anchor over
 its 8 val scenes against JAX's there; one training step of a small k=3 stem, patch 32, 7-channel
-PT-v3m1 against JAX's value-and-grad; the 7-channel stem conv's padding; the
+PT-v3m1 (one serialization order) against JAX's value-and-grad; the 7-channel stem conv's padding; the
 weight loading of the server and of ``CheckpointLoader``.
 
 The val scenes: ``GridSample`` (train mode) and the slot subsample draw from
@@ -77,7 +77,8 @@ SLOT, SAMPLES, K = 128, 2, 6
 STEP_CFG = dict(
     type="OffsetKeypointPTv3", num_keypoints=K, hidden_dim=32,
     backbone_conf=dict(
-        type="PT-v3m1", in_channels=7, stride=(2,), enc_depths=(1, 1), enc_channels=(16, 24), enc_num_head=(1, 2),
+        type="PT-v3m1", in_channels=7, order=("z",), stride=(2,), enc_depths=(1, 1), enc_channels=(16, 24),
+        enc_num_head=(1, 2),
         enc_patch_size=(32, 32), dec_depths=(1,), dec_channels=(16,), dec_num_head=(1,), dec_patch_size=(32,),
         slot_divisors=(1, 2), drop_path=0.0, shuffle_orders=False, stem_kernel=3,
     ),

@@ -7,7 +7,7 @@ chunks of 16), ``connected_components`` (batches, ignored classes, an
 iteration cap that stops a chain half-way), ``cluster_proposals`` and
 ``proposals_from_labels``, ``associate_batch``, ``evaluate_matches`` and
 ``summarize_ap``, ``InstanceParser``, and ``PointGroup``: PG-v1m1 over a
-small SpUNet (one training step: logits, shifts, the three losses, every
+one-stage SpUNet (one training step: logits, shifts, the three losses, every
 gradient, the running statistics) and PG-v1m2 over a small PTv3 (eval
 forward), through ``convert.py`` on seeded flax params.  JAX compiles the
 PointGroup references as one function, in a thread started by the file's
@@ -55,13 +55,13 @@ SLOT, SAMPLES, CLASSES = 256, 2, 5
 CRITERIA = [dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1)]
 PG_SPUNET = dict(type="PG-v1m1", criteria=CRITERIA, backbone_out_channels=16, semantic_num_classes=CLASSES,
                  backbone=dict(type="SpUNet-v1m1", in_channels=6, num_classes=0, base_channels=8,
-                               channels=(8, 16, 16, 8), layers=(1, 1, 1, 1), bn_momentum=0.1, slot_divisors=(2, 4),
+                               channels=(16, 8), layers=(1, 1), bn_momentum=0.1, slot_divisors=(2,),
                                stem_kernel=3))
 PG_PTV3 = dict(type="PG-v1m2", criteria=CRITERIA, backbone_out_channels=16, semantic_num_classes=CLASSES,
-               backbone=dict(type="PT-v3m1", in_channels=6, order=("z", "hilbert"), stride=(2, 2),
-                             enc_depths=(1, 1, 1), enc_channels=(16, 32, 48), enc_num_head=(1, 2, 3),
-                             enc_patch_size=(16, 16, 16), dec_depths=(1, 1), dec_channels=(16, 32),
-                             dec_num_head=(1, 2), dec_patch_size=(16, 16), slot_divisors=(1, 4, 16), kmap_depth=10,
+               backbone=dict(type="PT-v3m1", in_channels=6, order=("z", "hilbert"), stride=(2,),
+                             enc_depths=(1, 1), enc_channels=(16, 32), enc_num_head=(1, 2),
+                             enc_patch_size=(16, 16), dec_depths=(1,), dec_channels=(16,),
+                             dec_num_head=(1,), dec_patch_size=(16,), slot_divisors=(1, 4), kmap_depth=10,
                              drop_path=0.0, shuffle_orders=False))
 
 

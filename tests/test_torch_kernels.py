@@ -350,10 +350,11 @@ def test_conv_dw_row_splits_at_the_training_shapes():
     assert sc.row_splits([0] * 27, 8, 8, sms=132) == 1
 
 
+@functools.cache
 def _jax_kernel_map():
     """A kernel map built by the JAX package over three slots of 70 rows (N = 210, not a multiple of
     the 64-row tile), pads last in each slot: 50 voxels, one voxel, 40 voxels, all at even z, so the 18
-    offsets with dz = +-1 hit no row."""
+    offsets with dz = +-1 hit no row.  Built once for the file's two tests."""
     rng = np.random.default_rng(7)
     slot, counts = 70, (50, 1, 40)
     grid = np.zeros((3 * slot, 3), np.int32)

@@ -69,7 +69,7 @@ from pointcept_keypointdetection_tpu_torch.utils.logger import get_root_logger
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLOT, K, POINTS = 256, 6, 1500
-ONE_STAGE = dict(stride=(), enc_depths=(1,), enc_channels=(16,), enc_num_head=(1,), enc_patch_size=(32,),
+ONE_STAGE = dict(order=("z",), stride=(), enc_depths=(1,), enc_channels=(16,), enc_num_head=(1,), enc_patch_size=(32,),
                  dec_depths=(), dec_channels=(), dec_num_head=(), dec_patch_size=(), slot_divisors=(1,),
                  drop_path=0.0, shuffle_orders=False)
 KEYPOINT = dict(type="KeypointPTv3Plus", num_keypoints=K, hidden_dim=32,

@@ -3,7 +3,8 @@ package on the CPU.
 
 ``KeypointModel`` (``KeypointPTv3Plus`` over a one-stage PT-v3plus: K = 125,
 bottleneck 16), ``PigBodyRegressor`` with ``RegressionL1Loss`` and
-``VoteKeypointModel`` over a one-stage PT-v3m1, each with the same seeded
+``VoteKeypointModel`` over a one-stage PT-v3m1 (the heads' claims do not
+depend on the serialization: one order, z), each with the same seeded
 weights and batch (2 samples of 128 slots with pads): one training step (the
 outputs, the losses, ``mean_dist``, ``mae_i``, every gradient by
 ``convert.py`` name, the running statistics after it) and ``KeypointModel``'s
@@ -46,9 +47,9 @@ from pointcept_keypointdetection_tpu_torch.models.norm import Dropout
 from pointcept_keypointdetection_tpu_torch.models.structure import PointBatch
 
 SLOT, SAMPLES, K = 128, 2, 6
-ONE_STAGE = dict(stride=(), enc_depths=(1,), enc_channels=(16,), enc_num_head=(1,), enc_patch_size=(32,),
-                 dec_depths=(), dec_channels=(), dec_num_head=(), dec_patch_size=(), slot_divisors=(1,),
-                 in_channels=4, drop_path=0.0, shuffle_orders=False)
+ONE_STAGE = dict(order=("z",), stride=(), enc_depths=(1,), enc_channels=(16,), enc_num_head=(1,),
+                 enc_patch_size=(32,), dec_depths=(), dec_channels=(), dec_num_head=(), dec_patch_size=(),
+                 slot_divisors=(1,), in_channels=4, drop_path=0.0, shuffle_orders=False)
 PTV3 = dict(type="PT-v3m1", **ONE_STAGE)
 PTV3PLUS = dict(type="PT-v3plus", cpe_kernel_size=5, cpe_bottleneck=16, **ONE_STAGE)
 MODELS = {
@@ -259,13 +260,15 @@ def test_convert_maps_each_head(reference, tmp_path):
 
 def test_unported_backbones_raise_where_built():
     """The heads over a backbone the port lacks raise where they are built; over the ported ones they build."""
-    for cfg in (dict(type="KeypointPTv2", backbone_conf=dict(type="PT-v2m2", in_channels=4)),
-                dict(type="KeypointPTv1", backbone_conf=dict(type="PT-v1", in_channels=4)),
-                dict(type="KeypointStratifiedTransformer", backbone_conf=dict(type="ST-v1m2", in_channels=4)),
-                dict(type="KeypointOACNNs", backbone_conf=dict(type="OA-CNNs", in_channels=4)),
-                dict(type="OffsetKeypointModel", backbone_conf=dict(type="PT-v2m2", in_channels=4))):
+    for cfg in (dict(type="KeypointModel", backbone_conf=dict(type="SPVCNN", in_channels=4)),
+                dict(type="OffsetKeypointModel", backbone_conf=dict(type="SGIFormer-v1m1", in_channels=4))):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(cfg)
+    for name, backbone, width in (("KeypointPTv2", "PT-v2m2", 48), ("KeypointPTv1", "PT-v1", 32),
+                                  ("KeypointStratifiedTransformer", "ST-v1m2", 48), ("KeypointOACNNs", "OA-CNNs", 32),
+                                  ("OffsetKeypointModel", "PT-v2m2", 48)):
+        model = build_model(dict(type=name, num_keypoints=K, backbone_conf=dict(type=backbone, in_channels=4)))
+        assert model.backbone.out_channels == width
     swin = dict(type="Swin3D-v1m1", in_channels=4, depths=(1,), channels=(16,), num_heads=(1,), window_sizes=(4,),
                 slot_divisors=(1,))
     octformer = dict(type="OctFormer-v1m1", in_channels=4, channels=(16,), num_blocks=(1,), num_heads=(1,),

@@ -1,7 +1,8 @@
 """The port's OffsetKeypoint PT-v3m1, predictor and server against the JAX package.
 
 A small model (2 stages, stage 1 of depth 2 so that ``convert.py`` splits an
-``nn.scan`` stack, channels <= 24, patch 32, slot 256, k=5 stem) gets seeded
+``nn.scan`` stack and its Blocks cycle through two serialization orders, z and
+hilbert; channels <= 24, patch 32, slot 256, k=5 stem) gets seeded
 JAX parameters (``jax.eval_shape`` shapes, numpy values), one jitted JAX
 apply, and the same weights converted into the port.  Outputs on valid rows
 agree within 5e-5 (f32 sums in another order through four blocks).
@@ -41,7 +42,7 @@ CFG = dict(
     num_keypoints=6,
     hidden_dim=32,
     backbone_conf=dict(
-        type="PT-v3m1", in_channels=4, stride=(2,), enc_depths=(1, 2), enc_channels=(16, 24),
+        type="PT-v3m1", in_channels=4, order=("z", "hilbert"), stride=(2,), enc_depths=(1, 2), enc_channels=(16, 24),
         enc_num_head=(1, 2), enc_patch_size=(32, 32), dec_depths=(1,), dec_channels=(16,),
         dec_num_head=(1,), dec_patch_size=(32,), slot_divisors=(1, 2), drop_path=0.0,
     ),

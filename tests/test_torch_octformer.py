@@ -17,8 +17,8 @@ JAX's Dropout mask read off its output and put into the port's) and of
 ``OffsetKeypointOctFormer`` over both stages at one Block each (pooling and
 the decoder): the outputs, the losses and every gradient by ``convert.py``
 name, the running statistics after it; ``SubMConv`` with a bias.  JAX
-compiles its three references in a thread started by the file's first test,
-with XLA's cheaper CPU passes.
+compiles its three references as one function, in a thread started by the
+file's first test, with XLA's cheaper CPU passes.
 
 Tolerance: f32 within 1e-4 x max(1, max|ref|) per tensor (outputs, losses,
 gradients); running statistics 1e-6.  ``KeypointModel``'s first Dense feeds
@@ -27,7 +27,6 @@ both sides: each side's within 1e-4 x the largest gradient of that norm's
 bias.
 """
 
-import functools
 from concurrent.futures import ThreadPoolExecutor
 
 import flax.linen as fnn
@@ -154,18 +153,12 @@ def _jax_reference():
             return out["loss"], (out, mutated)
         return jax.value_and_grad(loss_fn, has_aux=True)(params)
 
-    def forward(v, cv):
-        seg, inter = models["seg"].apply(v, _jax_point(b), b, train=False, mutable=["intermediates"])
-        return seg, inter, conv_apply(cv)[1]
+    def run(v, cv):
+        seg, inter = models["seg"].apply(v["seg"], _jax_point(b), b, train=False, mutable=["intermediates"])
+        steps = {key: step(key, v[key]["params"], v[key].get("batch_stats", {})) for key in ("keypoint", "offset")}
+        return seg, inter, conv_apply(cv)[1], steps
 
-    compiled = [jax.jit(forward).lower(variables["seg"], conv_vars).compile(FAST_COMPILE)]
-    compiled += [jax.jit(functools.partial(step, key)).lower(variables[key]["params"],
-                                                             variables[key].get("batch_stats", {})
-                                                             ).compile(FAST_COMPILE)
-                 for key in ("keypoint", "offset")]
-    seg, inter, conv_out = compiled[0](variables["seg"], conv_vars)
-    steps = {key: fn(variables[key]["params"], variables[key].get("batch_stats", {}))
-             for key, fn in zip(("keypoint", "offset"), compiled[1:])}
+    seg, inter, conv_out, steps = jax.jit(run).lower(variables, conv_vars).compile(FAST_COMPILE)(variables, conv_vars)
     out = {}
     for key, ((_, (outputs, mutated)), grads) in steps.items():
         out[key] = dict(outputs=jax.tree.map(np.asarray, outputs), grads=jax.tree.map(np.array, grads),

@@ -3,7 +3,8 @@
 ``derive_kernel_map`` (the K = 125 stage-0 map read off the k=5 stem's coarse
 cells) integer-equal to JAX's on the same parent cells, and to the port's
 own direct ``build_kernel_map`` of ``cube(5)``; a small PT-v3plus
-(``cpe_kernel_size=5``, ``cpe_bottleneck=16``, two stages, patch 32, 2
+(``cpe_kernel_size=5``, ``cpe_bottleneck=16``, two stages, one serialization
+order, patch 32, 2
 samples of 128 slots with pads, ``drop_path`` 0, ``shuffle_orders`` False) in
 training mode with the same seeded weights: its features, the gradient of
 a seeded weighted sum of them with respect to every parameter (by
@@ -39,7 +40,8 @@ from pointcept_keypointdetection_tpu_torch.ops import sparse
 
 SLOT, SAMPLES = 128, 2
 BACKBONE = dict(
-    type="PT-v3plus", in_channels=4, stride=(2,), enc_depths=(1, 1), enc_channels=(16, 24), enc_num_head=(1, 2),
+    type="PT-v3plus", in_channels=4, order=("z",), stride=(2,), enc_depths=(1, 1), enc_channels=(16, 24),
+    enc_num_head=(1, 2),
     enc_patch_size=(32, 32), dec_depths=(1,), dec_channels=(16,), dec_num_head=(1,), dec_patch_size=(32,),
     slot_divisors=(1, 2), drop_path=0.0, shuffle_orders=False, cpe_kernel_size=5, cpe_bottleneck=16,
 )
@@ -103,13 +105,17 @@ def test_derive_kernel_map_matches_jax(seed, span, shift):
     scene = slotted_scene(rng, SAMPLES, SLOT, n_valid=100, span=span)
     grid, valid, batch = scene["grid_coord"], scene["valid"], scene["batch"].astype(np.int32)
     spec = sparse.SparseConvSpec.cube(5)
-    ref = jax_sparse.derive_kernel_map(
-        jax_sparse.build_parent_index(jnp.asarray(grid), jnp.asarray(batch), jnp.asarray(valid), shift),
-        jnp.asarray(valid), jax_sparse.SparseConvSpec.cube(5))
+
+    def derive(g, b, v):  # jitted: one compile, where eager dispatch compiles every op on its own
+        return jax_sparse.derive_kernel_map(jax_sparse.build_parent_index(g, b, v, shift), v,
+                                            jax_sparse.SparseConvSpec.cube(5)).neighbor_idx
+
+    args = tuple(map(jnp.asarray, (grid, batch, valid)))
+    ref_idx = jax.jit(derive).lower(*args).compile(FAST_COMPILE)(*args)
     grid_t, valid_t, batch_t = torch.from_numpy(grid), torch.from_numpy(valid), torch.from_numpy(batch).long()
     got = sparse.derive_kernel_map(sparse.build_parent_index(grid_t, batch_t, valid_t, shift), valid_t, spec)
     assert got.neighbor_idx.dtype == torch.int32 and got.neighbor_idx.shape == (SAMPLES * SLOT, 125)
-    np.testing.assert_array_equal(got.neighbor_idx.numpy(), np.asarray(ref.neighbor_idx))
+    np.testing.assert_array_equal(got.neighbor_idx.numpy(), np.asarray(ref_idx))
     direct = sparse.build_kernel_map(sparse.build_voxel_index(grid_t, batch_t, valid_t), grid_t, batch_t, valid_t,
                                      spec)
     assert torch.equal(got.neighbor_idx, direct.neighbor_idx)

@@ -21,6 +21,7 @@ there).
 """
 
 import copy
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
@@ -107,18 +108,39 @@ def _loss_case(mode):
     return pred, target, valid
 
 
-@pytest.mark.parametrize("loss", [
-    dict(type="CrossEntropyLoss"),
-    dict(type="CrossEntropyLoss", weight=[0.5, 1.0, 2.0, 1.5], label_smoothing=0.1, loss_weight=0.7),
-    dict(type="CrossEntropyLoss", reduction="sum"),
-    dict(type="LovaszLoss", mode="multiclass"),
-    dict(type="LovaszLoss", mode="binary", loss_weight=0.5),
-], ids=["ce", "ce-weight-smooth", "ce-sum", "lovasz-multiclass", "lovasz-binary"])
-def test_losses_match_jax(loss):
+LOSSES = {
+    "ce": dict(type="CrossEntropyLoss"),
+    "ce-weight-smooth": dict(type="CrossEntropyLoss", weight=[0.5, 1.0, 2.0, 1.5], label_smoothing=0.1,
+                             loss_weight=0.7),
+    "ce-sum": dict(type="CrossEntropyLoss", reduction="sum"),
+    "lovasz-multiclass": dict(type="LovaszLoss", mode="multiclass"),
+    "lovasz-binary": dict(type="LovaszLoss", mode="binary", loss_weight=0.5),
+}
+
+
+@functools.cache
+def _jax_losses():
+    """Every loss case's value and gradient in JAX, compiled as one function for the file's loss tests."""
+    cases = {name: _loss_case(loss.get("mode", "multiclass")) for name, loss in LOSSES.items()}
+
+    def run(preds):
+        out = {}
+        for name, loss in LOSSES.items():
+            crit, (_, target, valid) = jax_build_criteria([loss]), cases[name]
+            out[name] = jax.value_and_grad(lambda p, c=crit, t=target, v=valid: c(p, jnp.asarray(t),
+                                                                                  valid=jnp.asarray(v)))(preds[name])
+        return out
+
+    preds = {name: jnp.asarray(case[0]) for name, case in cases.items()}
+    return jax.jit(run).lower(preds).compile(FAST_COMPILE)(preds)
+
+
+@pytest.mark.parametrize("name", list(LOSSES))
+def test_losses_match_jax(name):
+    loss = LOSSES[name]
     pred, target, valid = _loss_case(loss.get("mode", "multiclass"))
-    ref_crit, crit = jax_build_criteria([loss]), build_criteria([loss])
-    ref_fn = jax.jit(jax.value_and_grad(lambda p: ref_crit(p, jnp.asarray(target), valid=jnp.asarray(valid))))
-    ref, ref_grad = ref_fn.lower(jnp.asarray(pred)).compile(FAST_COMPILE)(jnp.asarray(pred))
+    crit = build_criteria([loss])
+    ref, ref_grad = _jax_losses()[name]
     p = torch.from_numpy(pred).requires_grad_()
     got = crit(p, torch.from_numpy(target), valid=torch.from_numpy(valid))
     got.backward()

@@ -69,9 +69,9 @@ ANCHOR_SCENES = 3  # tests/test_semseg_checkpoint.py's
 JAX_ANCHOR_MIOU = 0.999323
 MIOU_TOL = 0.005
 CAPACITY = 1024  # the testers' fragment capacity: some fragments hold more and are truncated
-# the testers' model: the mini recipe's DefaultSegmentor over a two-stage SpUNet (k=3 stem)
-SMALL = {"model.backbone.base_channels": 8, "model.backbone.channels": (8, 16, 16, 8),
-         "model.backbone.layers": (1, 1, 1, 1)}
+# the testers' model: the mini recipe's DefaultSegmentor over a one-stage SpUNet (k=3 stem): the testers'
+# fragments, augmentations and projection do not depend on its depth
+SMALL = {"model.backbone.base_channels": 8, "model.backbone.channels": (8, 8), "model.backbone.layers": (1, 1)}
 TEST_DATA = dict(
     type="SyntheticSemSegDataset", split="val", num_scenes=2, num_points=1500, num_classes=6, test_mode=True,
     transform=[dict(type="CenterShift", apply_z=True), dict(type="NormalizeColor"),

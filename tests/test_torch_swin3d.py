@@ -3,14 +3,16 @@ on the CPU.
 
 ``three_nn_interpolate`` (the brute path) against JAX's, called eagerly as
 the port's ``knn`` rounds: equal picks, and a sample with fewer than 3 valid
-base points takes JAX's fillers.  Swin3D (2 samples of 128 slots with 12
+base points takes JAX's fillers (its bucketed path, ``cell_size`` > 0, and
+``KnnUpsample`` with a cell are ``tests/test_torch_stratified.py``'s, beside
+``knn_bucketed``).  Swin3D (2 samples of 128 slots with 12
 pad rows, coordinates uniform in [0, 1.2) at grid 0.05, patch 32, windows of
 4, a plain and a shifted Block per stage, drop path 0) in each cRSE mode:
 ``XYZ`` and ``XYZ_RGB_NORM`` (6 input channels, quant 2) over one stage,
 ``XYZ_RGB`` (4 input channels, the rest of the signal zeros) over two stages
 (a plain and a shifted Block, grid down-sampling, a Block, the 3-NN
 up-sampling and a decoder Block); one training step of
-``KeypointSwin3DVote`` over one stage (the outputs, the loss, ``mean_dist``,
+``KeypointSwin3DVote`` over one stage of one Block (the outputs, the loss, ``mean_dist``,
 every gradient by ``convert.py`` name and the running statistics).  The same seeded weights on both sides, names from
 ``jax.eval_shape``.  JAX compiles its forwards and its value-and-grad as one
 function, in a thread started by the file's first test, with XLA's cheaper
@@ -54,7 +56,7 @@ FORWARDS = {
     "XYZ_RGB_NORM": dict(ONE_STAGE, in_channels=6, crse="XYZ_RGB_NORM", quant_size=2),
 }
 VOTE = dict(type="KeypointSwin3DVote", num_keypoints=K, hidden_dim=32, vote_radius=0.3,
-            backbone_conf=dict(ONE_STAGE, in_channels=4))
+            backbone_conf=dict(ONE_STAGE, in_channels=4, depths=(1,)))
 FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 TOL = 1e-4
 
@@ -187,8 +189,6 @@ def test_three_nn_interpolate_matches_jax(reference):
     _close(three_nn_interpolate(*args), reference["three_nn"]["batched"], "three_nn_interpolate", 1e-6)
     _close(three_nn_interpolate(*args[:3]), reference["three_nn"]["unbatched"], "three_nn_interpolate unbatched",
            1e-6)
-    with pytest.raises(NotImplementedError, match="knn_bucketed"):
-        three_nn_interpolate(*args, cell_size=0.1)
 
 
 @pytest.mark.parametrize("crse", list(FORWARDS))
@@ -209,8 +209,8 @@ def test_swin3d_crse_groups_follow_the_mode():
         model = build_model(dict(ONE_STAGE, in_channels=6, crse=crse))
         names = {name.rsplit(".", 1)[-1] for name, _ in model.named_parameters() if name.endswith("_table")}
         assert names == {f"{g}_{kind}_table" for g in groups for kind in "qkv"}
-    with pytest.raises(NotImplementedError, match="knn_bucketed"):
-        build_model(dict(TWO_STAGES, in_channels=4, upsample_cell_sizes=(0.1,)))
+    model = build_model(dict(TWO_STAGES, in_channels=4, upsample_cell_sizes=(0.1,)))
+    assert model.up0.knn_cell_size == 0.1 and build_model(dict(TWO_STAGES, in_channels=4)).up0.knn_cell_size == 0
 
 
 def test_vote_keypoint_swin3d_training_step_matches_jax(reference):

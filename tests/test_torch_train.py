@@ -1,7 +1,7 @@
 """The port's training path against the JAX package on the CPU.
 
 One training step of a small OffsetKeypoint PT-v3m1 (2 stages, channels
-<= 24, patch 32, 2 samples of 128 slots with pads, ``drop_path`` 0,
+<= 24, patch 32, two serialization orders, z and hilbert, 2 samples of 128 slots with pads, ``drop_path`` 0,
 ``shuffle_orders`` False, ``clip_grad`` low enough to clip) with the same
 seeded weights and batch: the loss, every gradient (by ``convert.py``
 name), the parameters after one AdamW + cosine step and the BN running
@@ -56,7 +56,7 @@ CFG = dict(
     num_keypoints=K,
     hidden_dim=32,
     backbone_conf=dict(
-        type="PT-v3m1", in_channels=4, stride=(2,), enc_depths=(1, 1), enc_channels=(16, 24),
+        type="PT-v3m1", in_channels=4, order=("z", "hilbert"), stride=(2,), enc_depths=(1, 1), enc_channels=(16, 24),
         enc_num_head=(1, 2), enc_patch_size=(32, 32), dec_depths=(1,), dec_channels=(16,),
         dec_num_head=(1,), dec_patch_size=(32,), slot_divisors=(1, 2), drop_path=0.0, shuffle_orders=False,
     ),
