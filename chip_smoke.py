@@ -12,9 +12,11 @@ the KeypointPTv3Plus recipe and the other pig recipes trained through the
 fork's readers, ``infer_offset``), OctFormer and Swin3D (served and
 trained as the fork's configs write them) with the pig users' four tools
 (``inference_split``, ``batch_infer_export_txt``, ``infer_npy``,
-``evaluate_all_splits``), and OA-CNNs, PT-v2m2, PT-v1 and ST-v1m2 (served
-and trained as the fork's configs write them) on one NVIDIA GPU, and hold
-its hand-written kernels against their plain versions.
+``evaluate_all_splits``), OA-CNNs, PT-v2m2, PT-v1 and ST-v1m2 (served
+and trained as the fork's configs write them), and SemanticKITTI
+segmentation (the SLAM bridge's per-scan labeller and the PT-v3m1,
+MinkUNet34C and SPVCNN recipes) on one NVIDIA GPU, and hold its
+hand-written kernels against their plain versions.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -244,7 +246,30 @@ Phases, each fatal on failure:
      Cout 4 -> 32 through 256 -> 128) on the maps of a step and a request,
      f32 against their plain versions, bit for bit, timed per step and per
      request beside the gather + ``torch.matmul`` and the bound;
- 42. summary: the script's duration, the kernels line (per keypoint training
+ 42. SemanticKITTI: seeded scans of 120,000 points (64 rings x 1,875
+     azimuths cast onto a street: road, facades, end walls, poles, cars;
+     raw ids 40, 50, 80, 10) written in the raw layout for sequences 00
+     (train) and 08 (val), read back through the port's reader exactly,
+     their voxels' fill of the 131,072 slot printed; the SLAM bridge's
+     labeller (``SemanticScanPredictor``) over ``semseg-ptv3-base.py``
+     (PT-v3m1: B1 22, B3 22, 5 rulebooks a scan),
+     ``semseg-minkunet34c-0-base.py`` (B3 47, 6 rulebooks) and
+     ``semseg-spvcnn-v1m1-0-base.py`` (B3 23, 4 rulebooks) at slot 131,072:
+     a warm-up and 3 timed scans, one profiled, one card against CPU
+     (logits within ``CPU_TOL``, labels apart only on a near tie, the
+     embedding within ``CPU_TOL``); each recipe trained as written through
+     ``DefaultTrainer`` on the tree (batch 8, f32, Mix3D 0.8,
+     its first epoch of 4 steps with the evaluator and the saver: PT-v3m1
+     B1 22, B2 22, B3 44, B4 22; MinkUNet34C B3 93, B4 47; SPVCNN B3 46, B4
+     23 a step), a profiled step, the loss falling on a fixed batch; one
+     step of each at batch 1 and slot ``KITTI_CPU_SLOT`` card against CPU
+     (MinkUNet34C and SPVCNN with ``ReluTies``); B1 and B2 at every PT-v3m1
+     level (up to 1,048,576 rows, patch 128, head dim 16) and B3 and B4 at
+     every conv shape of the three (MinkUNet34C's K = 125 stem at Cin 4
+     padded to 8, its and SPVCNN's K = 27 convs) against their plain
+     versions on the runs' maps, bit for bit run to run, timed per step and
+     per scan beside their library calls and bounds;
+ 43. summary: the script's duration, the kernels line (per keypoint training
      step: launches, errors and times of the training levels; B1 and B3 also
      per bench forward in bf16; B1-B4 per pigseg step, ``pigseg_*``, and per
      amp step, ``amp_*``; per r3 step, ``r3_step_*``, and B1 and B3 per r3
@@ -257,8 +282,9 @@ Phases, each fatal on failure:
      ``kp_plus_step_*``, and B1 and B3 per request, ``kp_plus_request_*``;
      B3 and B4 per OctFormer step, ``octformer_step_*``, and B3 per request,
      ``octformer_request_*``; B3 and B4 per OA-CNNs step, ``oacnns_step_*``,
-     and B3 per request, ``oacnns_request_*``), then ``{"ok": true,
-     "device": ...}`` last.
+     and B3 per request, ``oacnns_request_*``; per SemanticKITTI step and
+     scan of PT-v3m1, MinkUNet34C and SPVCNN, ``kitti_{ptv3,mink,spvcnn}_
+     {step,scan}_*``), then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -308,6 +334,7 @@ from pointcept_keypointdetection_tpu_torch.inference.keypoint import (
     estimate_normals_curvature,
 )
 from pointcept_keypointdetection_tpu_torch.inference.segment import SegmentPredictor
+from pointcept_keypointdetection_tpu_torch.inference.semantic_scan import SemanticScanPredictor
 from pointcept_keypointdetection_tpu_torch.kernels import _build
 from pointcept_keypointdetection_tpu_torch.kernels import patch_attention as pa
 from pointcept_keypointdetection_tpu_torch.kernels import sparse_conv as sc
@@ -2285,12 +2312,13 @@ def capture_spunet_maps(run, label: str) -> dict:
     return maps
 
 
-def phase_spunet_train(label: str, cfg, probe_keys=("loss",), probe_steps: int = PROBE_STEPS) -> dict:
+def phase_spunet_train(label: str, cfg, probe_keys=("loss",), probe_steps: int = PROBE_STEPS, expect=None,
+                       capture=None) -> dict:
     """An SpUNet recipe's trainer on the card with its hooks: its first epoch, each step's launches and
-    rulebooks counted (``spunet_expect``) and every kernel's input held to f32, then its evaluator and
-    the saver; one step under torch.profiler; the kernel maps of a batch of the recipe's data; then
-    ``probe_steps`` steps of a fresh trainer on that batch, each of whose ``probe_keys`` losses must
-    end below its first value."""
+    rulebooks counted (``spunet_expect``, or ``expect``) and every kernel's input held to f32, then its
+    evaluator and the saver; one step under torch.profiler; the kernel maps of a batch of the recipe's
+    data (``capture_spunet_maps``, or ``capture(model, run, label)``); then ``probe_steps`` steps of a fresh
+    trainer on that batch, each of whose ``probe_keys`` losses must end below its first value."""
     bb = cfg.model.backbone
     trainer = Trainer(cfg, device="cuda")
     total = len(trainer.train_loader) * trainer.max_epoch
@@ -2306,7 +2334,7 @@ def phase_spunet_train(label: str, cfg, probe_keys=("loss",), probe_steps: int =
             run_step()
 
     trainer.run_step = watched_step
-    run = counted_training(trainer, label, bb, expect=spunet_expect(bb, training=True))
+    run = counted_training(trainer, label, bb, expect=expect or spunet_expect(bb, training=True))
     trainer.run_step = run_step
     seen = {name: kinds for name, kinds in spies.seen.items() if kinds}
     print(f"{label}: dtypes the kernels received in the training steps: {seen}")
@@ -2321,8 +2349,8 @@ def phase_spunet_train(label: str, cfg, probe_keys=("loss",), probe_steps: int =
     batch = next(iter(trainer.train_loader))
     model = trainer.model.eval()
     with torch.no_grad():
-        run["maps"] = capture_spunet_maps(lambda: model(build_point_batch(sample_to_device(batch, "cuda"),
-                                                                          batch["num_samples"])), label)
+        forward = lambda: model(build_point_batch(sample_to_device(batch, "cuda"), batch["num_samples"]))  # noqa: E731
+        run["maps"] = capture(model, forward, label) if capture else capture_spunet_maps(forward, label)
     del trainer, model
     torch.cuda.empty_cache()
     probe = Trainer(cfg, device="cuda")
@@ -3560,6 +3588,389 @@ def phase_last_backbones(kernels: list) -> None:
               f"{prof['kernels']} kernels {stamp()}")
 
 
+# ---- SemanticKITTI: the SLAM bridge's per-scan labeller and the outdoor recipes (phase 42) --------------
+
+KITTI_CONFIGS = {"ptv3": "configs/semantic_kitti/semseg-ptv3-base.py",
+                 "mink": "configs/semantic_kitti/semseg-minkunet34c-0-base.py",
+                 "spvcnn": "configs/semantic_kitti/semseg-spvcnn-v1m1-0-base.py"}
+KITTI_RINGS, KITTI_AZIMUTHS = 64, 1875  # 120,000 returns a scan, as an HDL-64E's at 10 Hz
+# the rings' elevations (degrees): the top ring meets the farthest end wall (70 m) below PointClip's z = 2 m
+KITTI_ELEVATION = (-24.9, 1.5)
+KITTI_SENSOR_HEIGHT = 1.73  # m above the road, as on the KITTI car
+RAW_ROAD, RAW_BUILDING, RAW_POLE, RAW_CAR = 40, 50, 80, 10
+KITTI_SCANS = {"00": 8, "08": 2}  # a train and a val sequence
+KITTI_SLOT = 131072  # the bridge's slot (tools/run_slam.py) and the recipes'
+KITTI_STEPS = 4  # the first epoch of each recipe
+KITTI_LABELLER_SCANS = 3
+# the card-vs-CPU training steps run at this slot, full width and depth: the CPU's step at 131,072 rows would
+# take the phase's time (PERF.md)
+KITTI_CPU_SLOT = 32768
+
+
+def kitti_scan(rng: np.random.Generator):
+    """One LiDAR scan in SemanticKITTI's sensor frame: KITTI_RINGS x KITTI_AZIMUTHS rays from a sensor
+    KITTI_SENSOR_HEIGHT above a road, each ray's first return among the road, two facades along the street,
+    two end walls across it, poles along both curbs and car-sized boxes in the lanes, with 2 cm of range
+    noise.  Returns float32 [N, 4] (xyz, reflectance) and the raw uint32 labels (road 40, building 50,
+    pole 80, car 10)."""
+    el = np.deg2rad(np.linspace(*KITTI_ELEVATION, KITTI_RINGS))
+    step = 2 * np.pi / KITTI_AZIMUTHS
+    az = np.arange(KITTI_AZIMUTHS) * step + rng.uniform(0, step)
+    e, a = np.meshgrid(el, az, indexing="ij")
+    d = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)], -1).reshape(-1, 3)
+    h = KITTI_SENSOR_HEIGHT
+    best = np.full(d.shape[0], np.inf)
+    label = np.zeros(d.shape[0], np.uint32)
+
+    def hit(t, raw):
+        closer = np.isfinite(t) & (t > 0.5) & (t < best)
+        best[closer] = t[closer]
+        label[closer] = raw
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        hit(np.where(d[:, 2] < 0, -h / d[:, 2], np.inf), RAW_ROAD)
+        half = rng.uniform(10.0, 16.0, 2)  # the street's half widths, left and right
+        for y in (half[0], -half[1]):
+            t = y / d[:, 1]
+            hit(np.where(t * d[:, 2] < 15.0 - h, t, np.inf), RAW_BUILDING)
+        for x in (rng.uniform(55.0, 70.0), -rng.uniform(55.0, 70.0)):
+            t = x / d[:, 0]
+            hit(np.where(t * d[:, 2] < 15.0 - h, t, np.inf), RAW_BUILDING)
+        for px in np.arange(-48.0, 48.0, 12.0) + rng.uniform(-2.0, 2.0):
+            for py in (half[0] - 0.6, -half[1] + 0.6):
+                qa = d[:, 0] ** 2 + d[:, 1] ** 2
+                qb = -2 * (d[:, 0] * px + d[:, 1] * py)
+                disc = qb**2 - 4 * qa * (px**2 + py**2 - 0.15**2)
+                t = (-qb - np.sqrt(np.maximum(disc, 0))) / (2 * qa)
+                z = t * d[:, 2]
+                hit(np.where((disc >= 0) & (z > -h) & (z < 6.0 - h), t, np.inf), RAW_POLE)
+        for _ in range(10):
+            cx = rng.choice([-1, 1]) * rng.uniform(6.0, 45.0)
+            cy = rng.uniform(-half[1] + 2.0, half[0] - 2.0)
+            lo, hi = np.array([cx - 2.2, cy - 0.9, -h]), np.array([cx + 2.2, cy + 0.9, -h + 1.5])
+            t1, t2 = lo / d, hi / d
+            near = np.minimum(t1, t2).max(1)
+            far = np.maximum(t1, t2).min(1)
+            hit(np.where(far >= near, near, np.inf), RAW_CAR)
+    ranges = best + rng.normal(0, 0.02, best.shape)
+    xyz = d * ranges[:, None]
+    reflect = {RAW_ROAD: 0.25, RAW_BUILDING: 0.4, RAW_POLE: 0.6, RAW_CAR: 0.8}
+    r = np.array([reflect[int(c)] for c in label]) + rng.uniform(-0.1, 0.1, label.shape)
+    return np.concatenate([xyz, r[:, None]], 1).astype(np.float32), label
+
+
+def write_kitti_scans(root: str, seed: int = 31) -> dict:
+    """KITTI_SCANS seeded scans per sequence in the raw layout (``velodyne/NNNNNN.bin``,
+    ``labels/NNNNNN.label``) under ``root``; returns {sequence: [(scan, raw labels)]}."""
+    rng = np.random.default_rng(seed)
+    written = {}
+    for seq, count in KITTI_SCANS.items():
+        base = os.path.join(root, "dataset", "sequences", seq)
+        os.makedirs(os.path.join(base, "velodyne"))
+        os.makedirs(os.path.join(base, "labels"))
+        written[seq] = []
+        for i in range(count):
+            scan, raw = kitti_scan(rng)
+            scan.tofile(os.path.join(base, "velodyne", f"{i:06d}.bin"))
+            raw.tofile(os.path.join(base, "labels", f"{i:06d}.label"))
+            written[seq].append((scan, raw))
+    return written
+
+
+def check_kitti_reader(root: str, written: dict) -> None:
+    """The port's reader over the written tree: each split's scans (train "00", val "08") with their
+    coordinates, reflectance and train ids exactly as written; the slot's fill by each scan's voxels."""
+    from pointcept_keypointdetection_tpu_torch.datasets.semantic_kitti import LEARNING_MAP
+
+    for split, seq in (("train", "00"), ("val", "08")):
+        ds = build_dataset(dict(type="SemanticKITTIDataset", split=split, data_root=root, transform=None))
+        if len(ds) != len(written[seq]):
+            raise AssertionError(f"SemanticKITTI {split}: {len(ds)} scans read, {len(written[seq])} written")
+        for i, (scan, raw) in enumerate(written[seq]):
+            got = ds[i]
+            want = np.array([LEARNING_MAP[int(c)] for c in raw], np.int32)
+            if not (np.array_equal(got["coord"], scan[:, :3]) and np.array_equal(got["strength"], scan[:, 3:])
+                    and np.array_equal(got["segment"], want) and got["name"] == f"{seq}_{i:06d}"):
+                raise AssertionError(f"SemanticKITTI {split} scan {i}: the reader's arrays differ from the written")
+    voxels = [SemanticScanPredictor.voxelize(scan)[0]["coord"].shape[0] for scans in written.values()
+              for scan, _ in scans]
+    ids, counts = np.unique(np.concatenate([raw for scans in written.values() for _, raw in scans]),
+                            return_counts=True)
+    print(f"SemanticKITTI reader: {sum(len(v) for v in written.values())} scans of {KITTI_RINGS * KITTI_AZIMUTHS} "
+          f"points read back exactly (train ids through the learning map); raw ids "
+          f"{dict(zip(ids.tolist(), counts.tolist()))}; "
+          f"voxels at 0.05 m per scan {min(voxels)}-{max(voxels)} (median {int(np.median(voxels))}), the "
+          f"{KITTI_SLOT} slot filled {min(voxels) / KITTI_SLOT:.3f}-{max(voxels) / KITTI_SLOT:.3f}")
+    if max(voxels) > KITTI_SLOT:
+        raise AssertionError(f"a scan has {max(voxels)} voxels, more than the slot {KITTI_SLOT}")
+
+
+def kitti_expect(key: str, bb, training: bool):
+    """(launches, rulebooks) of one forward, or with ``training`` one step: PT-v3m1's B1 and B3 once per
+    Block (its k=5 stem is cell-packed), B2, B3 again and B4 once per Block in a step, one rulebook per level;
+    MinkUNet's and SPVCNN's B3 once per conv forward and once more for every input gradient but MinkUNet's
+    stem's, B4 once per conv, one rulebook per map (MinkUNet: the stem's K = 125, one K = 27 per stage and
+    the full-resolution K = 27 of the last decoder stage; SPVCNN: one K = 27 per stage)."""
+    if key == "ptv3":
+        blocks = sum(bb["enc_depths"]) + sum(bb["dec_depths"])
+        launches = {"patch_attention_fwd": blocks, "patch_attention_bwd": blocks if training else 0,
+                    "subm_conv_fwd": 2 * blocks if training else blocks, "subm_conv_dw": blocks if training else 0}
+        return launches, len(bb["enc_depths"])
+    backbone = build_model(dict(Config.fromfile(KITTI_CONFIGS[key]).model)).backbone
+    convs = sum(isinstance(m, spunet_module.SubMConv) for m in backbone.modules())  # each runs once a forward
+    stems, books = (1, 2 + len(backbone.slot_divisors)) if key == "mink" else (0, len(backbone.channels))
+    return {"patch_attention_fwd": 0, "patch_attention_bwd": 0, "subm_conv_fwd": 2 * convs - stems if training
+            else convs, "subm_conv_dw": convs if training else 0}, books
+
+
+def capture_kitti_convs(model, run, label: str) -> dict:
+    """The kernel maps and the convs of the MinkUNet or SPVCNN forward that ``run()`` drives through
+    ``model``: {"maps": {(N, K): map}, "convs": [(N, K, Cin, Cout, is MinkUNet's stem)] in call order}."""
+    make, conv = spunet_module.build_kernel_map, spunet_module.SubMConv.forward
+    maps, convs = {}, []
+    stem = getattr(model.backbone, "conv0", None)
+
+    def record(*args, **kwargs):
+        kmap = make(*args, **kwargs)
+        maps[tuple(kmap.neighbor_idx.shape)] = kmap.neighbor_idx
+        return kmap
+
+    def recorded_conv(self, feat, kmap):
+        k, cin, cout = self.weight.shape
+        convs.append((feat.shape[0], k, cin, cout, self is stem))
+        return conv(self, feat, kmap)
+
+    spunet_module.build_kernel_map, spunet_module.SubMConv.forward = record, recorded_conv
+    try:
+        run()
+    finally:
+        spunet_module.build_kernel_map, spunet_module.SubMConv.forward = make, conv
+    for (n, k), idx in sorted(maps.items(), reverse=True):
+        print(f"{label} map N={n} K={k}: {int((idx < n).sum())} hits, {int((idx[:, k // 2] < n).sum())} valid rows")
+    return dict(maps=maps, convs=convs)
+
+
+def phase_kitti_labeller(key: str, scans: list) -> dict:
+    """``SemanticScanPredictor`` of a KITTI config at slot 131,072 (seeded weights) on the card: a warm-up
+    scan, then KITTI_LABELLER_SCANS scans timed on the host clock, each with its launches and rulebooks
+    counted (``kitti_expect``) and its labels and embedding checked; one scan under torch.profiler; the
+    kernel maps (and MinkUNet's and SPVCNN's convs) of one scan; one scan card against CPU with the same
+    weights: the logits within CPU_TOL x max(1, max|cpu|), each raw point's label apart only on a near tie,
+    the embedding within CPU_TOL x max(1, max|cpu|)."""
+    config = KITTI_CONFIGS[key]
+    cfg = Config.fromfile(config)
+    expect = kitti_expect(key, cfg.model.backbone, training=False)
+    predictor = SemanticScanPredictor(config, None, KITTI_SLOT, "cuda")
+    predictor(scans[-1])  # cuBLAS handles and the allocator's pool
+    latencies = []
+    for i, scan in enumerate(scans[:KITTI_LABELLER_SCANS]):
+        torch.cuda.synchronize()
+        set_launch_counts_to_zero()
+        t0 = time.perf_counter()
+        labels, emb = predictor(scan)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        got = (launch_counts(), sc.rulebook_builds)
+        print(f"{key} labeller scan {i}: {scan.shape[0]} points -> {labels.shape} labels, embedding {emb.shape}, "
+              f"{latencies[-1]:.1f} ms, launches {got[0]}, rulebooks built {got[1]} {stamp()}")
+        if got != expect:
+            raise AssertionError(f"{key} labeller scan {i}: expected launches and rulebooks {expect}, got {got}")
+        if labels.shape != (scan.shape[0],) or not np.isin(labels, np.arange(19)).all():
+            raise AssertionError(f"{key} labeller scan {i}: labels {labels.shape} {np.unique(labels)[:8]}")
+        if emb.dtype != np.float32 or emb.ndim != 1 or not np.isfinite(emb).all():
+            raise AssertionError(f"{key} labeller scan {i}: embedding {emb.dtype} {emb.shape} is not finite f32 [C]")
+    prof = profile_run(f"one {key} labeller scan", lambda: predictor(scans[0]), top=8)
+    data = predictor.voxelize(scans[0])[0]
+    batch = sample_to_device(collate([data], KITTI_SLOT), "cuda")
+
+    def run():
+        with torch.inference_mode():
+            predictor.model(build_point_batch(batch, 1))
+
+    if key == "ptv3":
+        capture = dict(maps=capture_maps(predictor.model, run, f"{key} scan"))
+    else:
+        capture = capture_kitti_convs(predictor.model, run, f"{key} scan")
+    state = {k: v.detach().cpu() for k, v in predictor.model.state_dict().items()}
+    cpu = SemanticScanPredictor(config, None, KITTI_SLOT, "cpu")
+    cpu.model.load_state_dict(state)
+    outs = []
+    for p in (predictor, cpu):
+        t0 = time.perf_counter()
+        outs.append(p.infer(scans[0], logits=True))
+        print(f"{key} labeller on {p.device}: logits, labels and embedding of one scan in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock) {stamp()}")
+    compare_seg_labels(f"{key} labeller", outs[0], outs[1], outs[0]["labels"], outs[1]["labels"])
+    err = float(np.abs(outs[0]["embedding"] - outs[1]["embedding"]).max())
+    scale = max(1.0, float(np.abs(outs[1]["embedding"]).max()))
+    print(f"{key} labeller card vs cpu embedding {outs[0]['embedding'].shape}: max_abs_err={err:.3e}, tol "
+          f"{CPU_TOL:g} x "
+          f"{scale:.3f} {stamp()}")
+    if err > CPU_TOL * scale:
+        raise AssertionError(f"{key} labeller: card and CPU embeddings disagree: {err:.3e}")
+    del predictor, cpu
+    torch.cuda.empty_cache()
+    return dict(latencies=latencies, counts=expect[0], profile=prof, capture=capture)
+
+
+def kitti_train_config(key: str, root: str):
+    """A KITTI recipe as written (batch 8, slot 131,072, f32, its optimizer, schedule, criteria,
+    transforms and Mix3D; batch 8 fits the card for all three, PERF.md) over the written tree: KITTI_STEPS
+    steps per epoch."""
+    cfg = Config.fromfile(KITTI_CONFIGS[key])
+    cfg.merge_from_dict({"save_path": os.path.join(root, f"exp_{key}"), "seed": 0, "data.train.data_root": root,
+                         "data.val.data_root": root,
+                         "data.train.loop": KITTI_STEPS * cfg.batch_size // KITTI_SCANS["00"]})
+    return cfg
+
+
+def phase_kitti_step_cpu(key: str, cfg) -> dict:
+    """One training step of a KITTI recipe at batch 1 (one scan of its training data through its transforms,
+    np.random seeded 5) at slot KITTI_CPU_SLOT, full width and depth, no drop path and no order shuffling,
+    card against CPU in f32 within TRAIN_CPU_TOL; MinkUNet's and SPVCNN's with the card on the CPU's side of
+    every ReLU tie (PT-v3m1 has none: GELU)."""
+    model_cfg = dict(cfg.model)
+    if key == "ptv3":
+        model_cfg["backbone"] = dict(cfg.model.backbone, drop_path=0.0, shuffle_orders=False)
+    np.random.seed(5)
+    batch_np = collate([build_dataset(dict(cfg.data.train))[0]], KITTI_CPU_SLOT, np.random)
+    return compare_step(f"kitti {key} (slot {KITTI_CPU_SLOT})", model_cfg, batch_np, torch.float32, TRAIN_CPU_TOL,
+                        relu_ties=key != "ptv3")
+
+
+def phase_kitti_ptv3_scan_kernels(bb, maps: dict, counts: dict) -> dict:
+    """B1 and B3 at every PT-v3m1 level of one scan (slot 131,072, patch 128, head dim 16) in f32 against
+    their plain versions, B3 on the scan's maps, each timed beside its library call and its bound, summed
+    per scan."""
+    rng = np.random.default_rng(67)
+    per_scan = {}
+    for (n, c, heads, patch), depth in seg_shapes(bb, KITTI_SLOT, 1).items():
+        check_attention(rng, n, heads, patch, torch.float32)
+        check_conv(rng, maps[n], c, torch.float32)
+        print(f"kitti ptv3 scan level N={n} C={c} H={heads} patch={patch} f32 (x{depth} Blocks per scan):")
+        add_row(per_scan, "patch_attention_fwd", time_attention(rng, n, heads, patch, torch.float32, False), depth)
+        add_row(per_scan, "subm_conv_fwd", time_conv(rng, maps[n], c, torch.float32, dw=False), depth)
+    for name, t in per_scan.items():
+        t["launches"] = counts[name]
+        print(f"{name} per kitti ptv3 scan (f32, sum over its {counts[name]} launches): kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms {stamp()}")
+    return per_scan
+
+
+def phase_kitti_conv_kernels(key: str, step_capture: dict, scan_capture: dict, step: dict, scan: dict) -> tuple:
+    """B3 and B4 at every conv shape of a MinkUNet34C or SPVCNN step (batch 8) and of a scan,
+    on the maps the runs captured, in f32 against their plain versions (the K = 125 stem's Cin 4 padded to
+    8 for the kernels) and bit for bit run to run: B3 forward, B3 at the input gradient's mirrored shape
+    (Cout -> Cin; none for the stem) and B4 in a step, B3 forward in a scan.  Each timed beside its plain
+    version, the gather + torch.matmul and its bound, summed per step and per scan; the sums' launches
+    checked against the runs' counts.  Returns ({"step": sums, "scan": sums}, each kernel's largest error)."""
+    rng = np.random.default_rng(71)
+    errors = dict.fromkeys(("subm_conv_fwd", "subm_conv_dw"), 0.0)
+    sums = {"step": {}, "scan": {}}
+    for part, capture, counts in (("step", step_capture, step), ("scan", scan_capture, scan)):
+        shapes, timed, launches, bits = {}, {}, dict.fromkeys(errors, 0), set()
+        for conv in capture["convs"]:
+            shapes[conv] = shapes.get(conv, 0) + 1
+        for (n, k, cin, cout, stem), reps in shapes.items():
+            idx = capture["maps"][(n, k)]
+            runs = [("subm_conv_fwd", cin, cout)]
+            if part == "step":
+                runs += [("subm_conv_dw", cin, cout)] + ([] if stem else [("subm_conv_fwd", cout, cin)])
+            if (n, k) not in bits:
+                check_conv_bits(rng, idx, cout, torch.float32, cin)
+                bits.add((n, k))
+            for name, ci, co in runs:
+                shape = (name, n, k, ci, co)
+                if shape not in timed:
+                    check_fn = check_conv if name == "subm_conv_fwd" else check_conv_dw
+                    errors[name] = max(errors[name], check_fn(rng, idx, co, torch.float32, ci))
+                    print(f"kitti {key} {part} N={n} K={k} Cin={ci} Cout={co}{' (the stem)' if stem else ''} {name} "
+                          f"f32 (x{reps} per {part}):")
+                    timed[shape] = time_conv(rng, idx, co, torch.float32, dw=name == "subm_conv_dw", cin=ci)
+                add_row(sums[part], name, timed[shape], reps)
+                launches[name] += reps
+        for name, t in sums[part].items():
+            if launches[name] != counts[name]:
+                raise AssertionError(f"kitti {key} {part}: {name} timed for {launches[name]} launches, the run made "
+                                     f"{counts[name]}")
+            t["launches"] = counts[name]
+            print(f"{name} per kitti {key} {part} (f32, sum over its {counts[name]} launches): kernel {t['ms']:.4f} "
+                  f"ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"{stamp()}")
+    return sums, errors
+
+
+def phase_kitti(kernels: list) -> None:
+    """Phase 42: SemanticKITTI segmentation.  Seeded scans written in the raw layout and read back through
+    the port's reader; the SLAM bridge's labeller (``SemanticScanPredictor``) over PT-v3m1, MinkUNet34C and
+    SPVCNN at slot 131,072; each recipe trained as written through ``DefaultTrainer`` on the tree (batch 8,
+    f32, its first epoch of KITTI_STEPS steps, the evaluator, the saver, a fixed-batch probe);
+    one step of each card against CPU; B1-B4 at PT-v3m1's KITTI levels and B3 and B4 at every MinkUNet34C
+    and SPVCNN conv shape against their plain versions, timed per step and per scan.  Adds
+    ``kitti_{ptv3,mink,spvcnn}_{step,scan}_*`` to the kernels line."""
+    labelled, trained, batch = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        written = write_kitti_scans(root)
+        check_kitti_reader(root, written)
+        scans = [scan for scan, _ in written["00"]]
+        for key in KITTI_CONFIGS:
+            labelled[key] = phase_kitti_labeller(key, scans)
+        for key in KITTI_CONFIGS:
+            cfg = kitti_train_config(key, root)
+            batch[key] = cfg.batch_size
+            label = f"kitti {key} recipe train"
+            if key == "ptv3":
+                trained[key] = phase_seg_train(label, cfg, torch.float32)
+            else:
+                trained[key] = phase_spunet_train(label, cfg, expect=kitti_expect(key, cfg.model.backbone, True),
+                                                  capture=capture_kitti_convs)
+            phase_kitti_step_cpu(key, cfg)
+    rows = {}
+    for key in KITTI_CONFIGS:
+        step, scan = trained[key]["steps"][-1], labelled[key]["counts"]
+        if key == "ptv3":
+            bb = Config.fromfile(KITTI_CONFIGS[key]).model.backbone
+            sums, errors = phase_seg_kernels("kitti ptv3", bb, KITTI_SLOT, batch[key],
+                                             trained[key].pop("maps"), torch.float32, step)
+            sums = {"step": sums, "scan": phase_kitti_ptv3_scan_kernels(bb, labelled[key]["capture"]["maps"], scan)}
+            for name, t in sums["step"].items():
+                t["launches"] = step[name]
+        else:
+            sums, errors = phase_kitti_conv_kernels(key, trained[key].pop("maps"), labelled[key]["capture"], step,
+                                                    scan)
+        rows[key] = (sums, errors, step, scan)
+    bound_by = lambda t: "operations" if t["t_ops"] >= t["t_bytes"] else "bytes"  # noqa: E731
+    for row in kernels:
+        name = row["name"]
+        for key, (sums, errors, step, scan) in rows.items():
+            prefix = f"kitti_{key}"
+            row[f"{prefix}_step_launches"], row[f"{prefix}_scan_launches"] = step[name], scan[name]
+            if name in errors:
+                row[f"{prefix}_step_max_abs_err"] = errors[name]
+            for part in ("step", "scan"):
+                t = sums[part].get(name)
+                if t is not None:
+                    row.update({f"{prefix}_{part}_ms": t["ms"], f"{prefix}_{part}_plain_ms": t["plain_ms"],
+                                f"{prefix}_{part}_library_ms": t["library_ms"],
+                                f"{prefix}_{part}_bound_ms": t["bound_ms"], f"{prefix}_{part}_bound_by": bound_by(t)})
+    for key, run in labelled.items():
+        print(f"kitti {key} labeller: scan median {statistics.median(run['latencies']):.2f} ms (host clock, "
+              f"{len(run['latencies'])} scans of {KITTI_RINGS * KITTI_AZIMUTHS} points, slot {KITTI_SLOT}), launches "
+              f"per scan B1 {run['counts']['patch_attention_fwd']} B3 {run['counts']['subm_conv_fwd']}; profiled scan "
+              f"busy {run['profile']['busy_ms']:.2f} ms, idle share {run['profile']['idle_share']:.3f} {stamp()}")
+    for key, run in trained.items():
+        prof = run["profile"]
+        print(f"kitti {key} recipe: batch {batch[key]} (the recipe's), step median "
+              f"{statistics.median(run['step_ms'][1:]):.2f} ms (host clock, steps 2-{len(run['step_ms'])}), peak memory "
+              f"{run['peak_bytes'] / 2**30:.2f} GiB, profiled step busy {prof['busy_ms']:.2f} ms, idle "
+              f"share {prof['idle_share']:.3f}, {prof['kernels']} kernels {stamp()}")
+
+
+def mark(phases: str, t_start: float) -> None:
+    """The script's clock at the end of ``phases``: what each part of the time limit goes to."""
+    print(f"chip_smoke clock: {phases} done at {time.perf_counter() - t_start:.1f} s {stamp()}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -3579,7 +3990,9 @@ def main() -> None:
     train = phase_train(cfg)
     phase_train_cpu(cfg)
     kernels, per_request = phase_times(cfg, latencies, maps, train_maps, errors, train)
+    mark("phases 1-9 (keypoint serving and training)", t_start)
     phase_pigseg()
+    mark("phase 10 (pigseg serving)", t_start)
     run = phase_bench()
     sums = phase_bench_kernels(run.pop("maps"))
     for row in kernels:  # B1 and B3 per bench forward, bf16
@@ -3602,6 +4015,7 @@ def main() -> None:
                                            dtype, step)
             seg[key] = (cfg, step, sums, errs)
         phase_seg_train_cpu(seg["pigseg"][0], seg["amp"][0])
+    mark("phases 11-15 (bench, segmentation trainers)", t_start)
     r3_cfg = Config.fromfile(R3_CONFIG)
     r3 = phase_r3_anchor(r3_cfg)
     r3_latencies = phase_r3_serve(r3_cfg)
@@ -3626,6 +4040,7 @@ def main() -> None:
         row["r3_max_abs_err"] = r3_errors[row["name"]]
     print(f"r3: anchor {r3['anchor']} mm on the card; request median {statistics.median(r3_latencies):.2f} ms; "
           f"step median {statistics.median(r3_train['step_ms'][1:]):.2f} ms {stamp()}")
+    mark("phases 16-20 (r3)", t_start)
     anchor = phase_semseg_r3_anchor()
     tester = phase_semseg_r3_tester()
     spunet = {}
@@ -3652,6 +4067,7 @@ def main() -> None:
               f"{trained['profile']['kernels']} kernels {stamp()}")
     print(f"semseg_r3: anchor mIoU {anchor['miou']}; tester mIoU {tester['mIoU']:.4f} over {tester['forwards']} "
           f"fragment forwards {stamp()}")
+    mark("phases 21-25 (SpUNet)", t_start)
     insseg = phase_insseg_anchor()
     pg = {}
     with tempfile.TemporaryDirectory() as root:
@@ -3693,9 +4109,15 @@ def main() -> None:
               f"{(t['cluster_s'] - t['knn_s']) * 1e3:.1f} ms {stamp()}")
     print(f"insseg_r3: anchor mAP/AP50/AP25 card {insseg['card']}, CPU {insseg['cpu']}; tester {insseg['seconds']:.2f} s "
           f"on the card {stamp()}")
+    mark("phases 26-30 (PointGroup)", t_start)
     phase_keypoint_heads(kernels, per_request)
+    mark("phases 31-36 (keypoint heads)", t_start)
     phase_backbones(kernels)
+    mark("phases 37-40 (OctFormer, Swin3D, the pig tools)", t_start)
     phase_last_backbones(kernels)
+    mark("phase 41 (the last four keypoint backbones)", t_start)
+    phase_kitti(kernels)
+    mark("phase 42 (SemanticKITTI)", t_start)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s {stamp()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,17 @@ arrays (what ``flax`` holds, or a checkpoint reader returns).  The rules:
   ``dec{s}_up``'s ``Dense_0``, ``MaskedBatchNorm_0``, ``Dense_1``,
   ``MaskedBatchNorm_1`` are ``fc1``, ``norm1``, ``fc2``, ``norm2``.  The
   KPConv stem's ``weight`` [15, Cin, Cout] keeps the JAX layout.
+* MinkUNet and SPVCNN (``models/mink_unet.py``, ``models/spvcnn.py``, in
+  ``DefaultSegmentor``): ``MinkUNet_0`` and ``SPVCNN_0`` are ``backbone``,
+  and every explicit flax name stays (MinkUNet's ``conv0``, ``bn0``,
+  ``conv{s}s2``, ``bn{s}``, ``block{s}_{i}``, ``convtr{k}``, ``bntr{k}``,
+  ``final``, a ``Bottleneck``'s ``conv1``-``conv3``, ``norm1``-``norm3``,
+  ``proj``, ``norm_proj``; SPVCNN's ``point_stem``, ``voxel_stem``,
+  ``down{s}``, ``enc{s}_block{i}``, ``up{s}``, ``dec{s}_block``,
+  ``point_tf{i}``, ``head`` and their norms).  A ``BasicBlock``'s
+  ``SubMConv_0``, ``SubMConv_1``, ``Dense_0`` (MinkUNet's ``block{s}_{i}``,
+  SPVCNN's ``enc{s}_block{i}`` / ``dec{s}_block``) are ``conv1``, ``conv2``,
+  ``proj``.
 
 ``load_jax_checkpoint`` reads a flax-msgpack checkpoint of the JAX package
 (``utils/checkpoint.py``, no ``msgpack`` package needed) and converts its
@@ -77,7 +88,7 @@ _PARENT_RENAMES = {
     ("mlp", "Dense_1"): "fc2",
 }
 _BACKBONES = ("PointTransformerV3_0", "SpUNet_0", "OctFormer_0", "Swin3DUNet_0", "OACNNs_0", "PointTransformerV2_0",
-              "PointTransformerV1_0", "StratifiedTransformer_0")
+              "PointTransformerV1_0", "StratifiedTransformer_0", "MinkUNet_0", "SPVCNN_0")
 # (parent pattern, child pattern, the port's name): SpUNet's call-order names
 _NUMBERED = tuple((re.compile(parent), re.compile(child), name) for parent, child, name in (
     (r"^SpUNet_0$", r"^SubMConv_0$", "stem"),
@@ -92,8 +103,11 @@ _NUMBERED = tuple((re.compile(parent), re.compile(child), name) for parent, chil
 ))
 _BLOCK = r"^(enc\d+_block\d+|dec\d+_block)$"
 # (backbone, parent pattern, {flax child name: the port's}): call-order names inside one backbone's blocks
+_BASIC_BLOCK = {"SubMConv_0": "conv1", "SubMConv_1": "conv2", "Dense_0": "proj"}
 _IN_BACKBONE = tuple((backbone, re.compile(parent), names) for backbone, parent, names in (
-    ("OACNNs_0", _BLOCK, {"SubMConv_0": "conv1", "SubMConv_1": "conv2", "Dense_0": "proj"}),
+    ("OACNNs_0", _BLOCK, _BASIC_BLOCK),
+    ("MinkUNet_0", r"^block\d+_\d+$", _BASIC_BLOCK),
+    ("SPVCNN_0", _BLOCK, _BASIC_BLOCK),
     ("PointTransformerV1_0", _BLOCK, {"Dense_0": "fc1", "MaskedBatchNorm_0": "norm1", "VectorAttentionLayer_0": "attn",
                                       "MaskedBatchNorm_1": "norm2", "Dense_1": "fc3", "MaskedBatchNorm_2": "norm3",
                                       "Dense_2": "proj"}),

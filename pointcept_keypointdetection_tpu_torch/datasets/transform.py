@@ -3,7 +3,7 @@ training configs.
 
 The port's copies of ``pointcept_keypointdetection_tpu/datasets/
 transform.py``: ``Compose``, ``Collect``, ``Copy``, ``Update``,
-``NormalizeColor``, ``CenterShift``, ``RandomDropout``, ``RandomRotate``,
+``NormalizeColor``, ``CenterShift``, ``PointClip``, ``RandomDropout``, ``RandomRotate``,
 ``RandomScale`` (a fixed scale [s, s], as the test-time aug lists use it, is
 one draw that returns s), ``RandomFlip``, ``RandomJitter``,
 ``ChromaticAutoContrast``, ``ChromaticTranslation``, ``ChromaticJitter``,
@@ -131,6 +131,18 @@ class CenterShift:
         x_max, y_max, _ = coord.max(axis=0)
         shift = [(x_min + x_max) / 2, (y_min + y_max) / 2, z_min if self.apply_z else 0]
         data_dict["coord"] = coord - shift
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class PointClip:
+    """Clip the coordinates into ``point_cloud_range`` (x, y, z minima, then maxima); no point is dropped."""
+
+    def __init__(self, point_cloud_range=(-80, -80, -3, 80, 80, 1)):
+        self.range = point_cloud_range
+
+    def __call__(self, data_dict):
+        data_dict["coord"] = np.clip(data_dict["coord"], self.range[:3], self.range[3:])
         return data_dict
 
 

@@ -5,8 +5,12 @@
 
 ``DefaultSegmentor``'s backbone returns the logits itself (SpUNet's head);
 with ``segment`` in the batch and ``criteria`` configured, ``loss`` is
-``criteria(logits, segment, valid=point.valid)``.  (JAX also sows the
-logits as ``backbone_feat`` for the SLAM front end, which is not ported.)
+``criteria(logits, segment, valid=point.valid)``.
+
+Both segmentors hand out JAX's sown ``backbone_feat`` (`default.py:40`,
+``:100``), which the SLAM front end pools into a scan embedding, only when
+the caller asks (``backbone_feat=True``): ``DefaultSegmentor``'s is its
+logits, ``DefaultSegmentorV2``'s the backbone's features before the head.
 
 ``DefaultSegmentorV2``'s backbone returns per-point features and the wrapper owns a linear seg
 head.  The head is flax ``nn.Dense`` without a ``dtype``, so it computes in
@@ -40,7 +44,7 @@ from .structure import PointBatch
 
 @MODELS.register_module()
 class DefaultSegmentor(nn.Module):
-    """backbone -> ``{"seg_logits": [N, num_classes]}`` (+ ``loss``)."""
+    """backbone -> ``{"seg_logits": [N, num_classes]}`` (+ ``loss``, + ``backbone_feat`` when asked)."""
 
     def __init__(self, backbone: Dict[str, Any], criteria: Sequence[Dict[str, Any]] = ()):
         super().__init__()
@@ -48,9 +52,11 @@ class DefaultSegmentor(nn.Module):
         self.criteria = build_criteria([dict(c) for c in criteria])
 
     def forward(self, point: PointBatch, batch: Optional[Dict[str, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None, backbone_feat: bool = False) -> Dict[str, torch.Tensor]:
         logits = self.backbone(point, generator)
         out = {"seg_logits": logits}
+        if backbone_feat:
+            out["backbone_feat"] = logits
         if batch is not None and "segment" in batch and self.criteria.criteria:
             out["loss"] = self.criteria(logits, batch["segment"], valid=point.valid)
         return out
@@ -58,7 +64,8 @@ class DefaultSegmentor(nn.Module):
 
 @MODELS.register_module()
 class DefaultSegmentorV2(nn.Module):
-    """backbone -> per-point features -> ``seg_head`` -> ``{"seg_logits": [N, num_classes]}``."""
+    """backbone -> per-point features -> ``seg_head`` -> ``{"seg_logits": [N, num_classes]}`` (+ ``loss``, + the
+    features as ``backbone_feat`` when asked)."""
 
     def __init__(self, backbone: Dict[str, Any], num_classes: int = 20, backbone_out_channels: int = 64,
                  criteria: Sequence[Dict[str, Any]] = ()):
@@ -68,11 +75,13 @@ class DefaultSegmentorV2(nn.Module):
         self.criteria = build_criteria([dict(c) for c in criteria])
 
     def forward(self, point: PointBatch, batch: Optional[Dict[str, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None, backbone_feat: bool = False) -> Dict[str, torch.Tensor]:
         feat = self.backbone(point, generator)
         dtype = torch.promote_types(feat.dtype, self.seg_head.weight.dtype)
         logits = F.linear(feat.to(dtype), self.seg_head.weight.to(dtype), self.seg_head.bias.to(dtype))
         out = {"seg_logits": logits}
+        if backbone_feat:
+            out["backbone_feat"] = feat
         if batch is not None and "segment" in batch and self.criteria.criteria:
             out["loss"] = self.criteria(logits, batch["segment"], valid=point.valid)
         return out

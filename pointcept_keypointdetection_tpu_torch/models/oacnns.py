@@ -35,22 +35,16 @@ from torch import nn
 from ..ops.codes import code_or_batch
 from ..ops.segment import segment_mean
 from ..ops.serialization import z_order_encode
-from ..ops.sparse import KernelMap, SparseConvSpec, build_kernel_map, build_voxel_index
+from ..ops.sparse import KernelMap
 from ..ops.voxelize import slotted_unique
 from .builder import MODELS
 from .keypoint import PromotedDense
 from .norm import MaskedBatchNorm
 from .sparse_unet import BasicBlock, InverseConvUp, StridedConvDown, SubMConv
+from .sparse_unet import kernel_map as level_kernel_map
 from .structure import PointBatch
 
 _DEPTH = 16
-
-
-def level_kernel_map(point: PointBatch) -> KernelMap:
-    """A level's k=3 map over its own voxels."""
-    batch = point.batch
-    index = build_voxel_index(point.grid_coord, batch, point.valid, _DEPTH)
-    return build_kernel_map(index, point.grid_coord, batch, point.valid, SparseConvSpec.cube(3), _DEPTH)
 
 
 class AdaptiveAggregation(nn.Module):

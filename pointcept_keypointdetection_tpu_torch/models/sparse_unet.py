@@ -46,6 +46,13 @@ from .structure import PointBatch
 _DEPTH = 16  # bits per axis in voxel codes
 
 
+def kernel_map(point: PointBatch, kernel_size: int = 3) -> KernelMap:
+    """A level's k^3 map over its own voxels (MinkUNet's, SPVCNN's and OA-CNNs' levels)."""
+    batch = point.batch
+    index = build_voxel_index(point.grid_coord, batch, point.valid, _DEPTH)
+    return build_kernel_map(index, point.grid_coord, batch, point.valid, SparseConvSpec.cube(kernel_size), _DEPTH)
+
+
 def _dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """flax ``nn.Dense`` without a dtype: computed in the promoted dtype of the input and the parameters."""
     dtype = torch.promote_types(x.dtype, layer.weight.dtype)

@@ -99,7 +99,8 @@ def build_kernel_map(
     spec: SparseConvSpec,
     depth: int = 16,
 ) -> KernelMap:
-    """For each voxel and each offset, the neighbor's row, or N."""
+    """For each query voxel and each offset, the neighbor's row in ``index``, or N, the number of
+    queries (the index may hold other voxels than the queries: SPVCNN's corner lookups)."""
     n = grid_coord.shape[0]
     sorted_code, order = torch.sort(index.sorted_code)
     rows = index.perm[order]
@@ -109,7 +110,7 @@ def build_kernel_map(
     k = offs.shape[0]
     qcode = z_order_encode(qcoord.clamp_min(0).reshape(-1, 3), depth).reshape(n, k)
     qcode = code_or_batch(qcode, batch[:, None], depth)
-    pos = torch.searchsorted(sorted_code, qcode).clamp(max=n - 1)
+    pos = torch.searchsorted(sorted_code, qcode).clamp(max=sorted_code.shape[0] - 1)
     hit = (sorted_code[pos] == qcode) & in_range
     neighbor = torch.where(hit, rows[pos], torch.full_like(pos, n))
     return KernelMap(neighbor_idx=neighbor.to(torch.int32))

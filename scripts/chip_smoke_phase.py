@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Run one phase of ``chip_smoke.py`` that takes the kernels line (``phase_backbones``,
-``phase_last_backbones``, ``phase_keypoint_heads``'s kin) after the device and build phases, on one
-CUDA card, and print the columns it adds to each kernel's row: a quick check of a slice's phase
-without the whole script.
+``phase_last_backbones``, ``phase_kitti``, ``phase_keypoint_heads``'s kin) after the device and build
+phases, on one CUDA card, and print the columns it adds to each kernel's row: a quick check of a slice's
+phase without the whole script.
 
-    python3 scripts/chip_smoke_phase.py phase_last_backbones
+    python3 scripts/chip_smoke_phase.py phase_kitti
 """
 
 import json

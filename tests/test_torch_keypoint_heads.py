@@ -260,13 +260,13 @@ def test_convert_maps_each_head(reference, tmp_path):
 
 def test_unported_backbones_raise_where_built():
     """The heads over a backbone the port lacks raise where they are built; over the ported ones they build."""
-    for cfg in (dict(type="KeypointModel", backbone_conf=dict(type="SPVCNN", in_channels=4)),
+    for cfg in (dict(type="KeypointModel", backbone_conf=dict(type="PT-v3m2", in_channels=4)),
                 dict(type="OffsetKeypointModel", backbone_conf=dict(type="SGIFormer-v1m1", in_channels=4))):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(cfg)
     for name, backbone, width in (("KeypointPTv2", "PT-v2m2", 48), ("KeypointPTv1", "PT-v1", 32),
                                   ("KeypointStratifiedTransformer", "ST-v1m2", 48), ("KeypointOACNNs", "OA-CNNs", 32),
-                                  ("OffsetKeypointModel", "PT-v2m2", 48)):
+                                  ("OffsetKeypointModel", "PT-v2m2", 48), ("KeypointModel", "SPVCNN", 32)):
         model = build_model(dict(type=name, num_keypoints=K, backbone_conf=dict(type=backbone, in_channels=4)))
         assert model.backbone.out_channels == width
     swin = dict(type="Swin3D-v1m1", in_channels=4, depths=(1,), channels=(16,), num_heads=(1,), window_sizes=(4,),

@@ -2,16 +2,22 @@
 
 Integer outputs (codes, orders, inverses, pooling maps, kernel maps, cell
 structures) must match exactly; float outputs within f32 rounding (1e-5).
-The scenes hold two samples of a few hundred slots with pads.
+The scenes hold two samples of a few hundred slots with pads.  JAX computes
+the scene's references (the serialization, the pooling maps, the voxel
+indices, the kernel maps, the cell structure and the cell-packed conv) as
+one jitted function, in a thread started by the file's first test, with
+XLA's cheaper CPU passes: called op by op, each of its ops would compile on
+its own.
 """
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import slotted_scene
+from torch_parity import FAST_COMPILE, slotted_scene
 
 from pointcept_keypointdetection_tpu.models.structure import PointBatch as JaxPointBatch
 from pointcept_keypointdetection_tpu.ops import segment as jseg
@@ -30,11 +36,72 @@ from pointcept_keypointdetection_tpu_torch.ops.voxelize import slotted_unique
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 ORDERS = ["z", "z-trans", "hilbert", "hilbert-trans"]
 SLOT, SAMPLES = 192, 2
+CAP = 48  # slotted_unique's capacity: below the ~60 parent cells per sample, so the overflow drop is exercised
+SU_FIELDS = ("parent_row", "head_row", "out_valid", "counts", "num_unique")
+PARENT_FIELDS = ("cell_kmap", "cell_table", "cell_of", "parity")
+
+
+def _scene():
+    return slotted_scene(np.random.default_rng(0), SAMPLES, SLOT, n_valid=150, span=9)
+
+
+def _conv_case():
+    rng = np.random.default_rng(2)
+    feat = rng.normal(size=(SAMPLES * SLOT, 4)).astype(np.float32)
+    w = (0.1 * rng.normal(size=(125, 4, 8))).astype(np.float32)
+    b = rng.normal(size=8).astype(np.float32)
+    return feat, w, b
+
+
+def _jax_reference(scene, perm):
+    """The scene's JAX references, one jitted function: with ``perm`` (the port's z order, which the JAX
+    model would reuse) and without it where the op takes one."""
+    import jax
+
+    n = SAMPLES * SLOT
+    feat, w, bias = _conv_case()
+
+    def run(grid, batch, valid, coord, perm, feat, w, bias):
+        out = {}
+        pb = JaxPointBatch(coord=coord, feat=jnp.zeros((n, 1), jnp.float32), grid_coord=grid, valid=valid,
+                           num_samples=SAMPLES).serialize(tuple(ORDERS))
+        out["order"], out["inverse"] = pb.serialized_order, pb.serialized_inverse
+        parent = grid >> 1
+        pcode = j_code_or_batch(jser.z_order_encode(parent, 16), batch, 16)
+        for reuse, p in ((False, None), (True, perm)):
+            su = j_slotted_unique(pcode, valid, batch, SAMPLES, CAP, precomputed_perm=p)
+            out[f"unique_{reuse}"] = {field: getattr(su, field) for field in SU_FIELDS}
+            index = jsparse.build_voxel_index(grid, batch, valid, 16, precomputed_perm=p)
+            out[f"index_{reuse}"] = (index.perm, index.sorted_code)
+        for kernel in (3, 5):
+            out[f"kmap_{kernel}"] = jsparse.build_kernel_map(index, grid, batch, valid,
+                                                             jsparse.SparseConvSpec.cube(kernel), 16).neighbor_idx
+        cells = jsparse.build_parent_index(grid, batch, valid, 1, 16, precomputed_perm=perm)
+        out["parent"] = {field: getattr(cells, field) for field in PARENT_FIELDS}
+        out["cell_packed"] = jsparse.cell_packed_conv(feat, cells, valid, w, jsparse.SparseConvSpec.cube(5), bias)
+        return out
+
+    args = [jnp.asarray(a) for a in (scene["grid_coord"], scene["batch"], scene["valid"], scene["coord"],
+                                     perm.numpy(), feat, w, bias)]
+    out = jax.jit(run).lower(*args).compile(FAST_COMPILE)(*args)
+    return jax.tree.map(np.asarray, out)
 
 
 @pytest.fixture(scope="module")
 def scene():
-    return slotted_scene(np.random.default_rng(0), SAMPLES, SLOT, n_valid=150, span=9)
+    return _scene()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_future():
+    scene = _scene()
+    with ThreadPoolExecutor(1) as pool:
+        yield pool.submit(_jax_reference, scene, _z_order(scene))
+
+
+@pytest.fixture(scope="module")
+def reference(reference_future):
+    return reference_future.result()
 
 
 def _t(a):
@@ -63,14 +130,13 @@ def test_codes_match_goldens_and_jax(depth, order):
     np.testing.assert_array_equal(got.numpy().view(np.uint64), ref)
 
 
-def test_serialize_order_and_inverse_match_jax(scene):
+def test_serialize_order_and_inverse_match_jax(scene, reference):
     n = SAMPLES * SLOT
     kw = dict(coord=scene["coord"], feat=np.zeros((n, 1), np.float32), grid_coord=scene["grid_coord"],
               valid=scene["valid"])
-    ref = JaxPointBatch(**{k: jnp.asarray(v) for k, v in kw.items()}, num_samples=SAMPLES).serialize(tuple(ORDERS))
     got = PointBatch(**{k: _t(v) for k, v in kw.items()}, num_samples=SAMPLES).serialize(tuple(ORDERS))
-    np.testing.assert_array_equal(got.serialized_order.numpy(), np.asarray(ref.serialized_order))
-    np.testing.assert_array_equal(got.serialized_inverse.numpy(), np.asarray(ref.serialized_inverse))
+    np.testing.assert_array_equal(got.serialized_order.numpy(), reference["order"])
+    np.testing.assert_array_equal(got.serialized_inverse.numpy(), reference["inverse"])
 
 
 def _z_order(scene):
@@ -82,26 +148,16 @@ def _z_order(scene):
 
 
 @pytest.mark.parametrize("reuse", [False, True])
-def test_slotted_unique_matches_jax(scene, reuse):
+def test_slotted_unique_matches_jax(scene, reference, reuse):
     parent = scene["grid_coord"] >> 1
     batch, valid = scene["batch"], scene["valid"]
     perm = _z_order(scene) if reuse else None
-    cap = 48  # below the ~60 parent cells per sample: the overflow drop is exercised
-    jcode = j_code_or_batch(jser.z_order_encode(jnp.asarray(parent), 16), jnp.asarray(batch), 16)
-    ref = j_slotted_unique(jcode, jnp.asarray(valid), jnp.asarray(batch), SAMPLES, cap,
-                           precomputed_perm=None if perm is None else jnp.asarray(perm.numpy()))
+    ref = reference[f"unique_{reuse}"]
     code = code_or_batch(tser.z_order_encode(_t(parent), 16), _t(batch), 16)
-    got = slotted_unique(code, _t(valid), _t(batch), SAMPLES, cap, precomputed_perm=perm)
-    assert int(got.num_unique) == int(ref.num_unique) > SAMPLES * cap
-    for field in ("parent_row", "head_row", "out_valid", "counts"):
-        np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(ref, field)), err_msg=field)
-
-
-def _jax_index(scene, perm):
-    return jsparse.build_voxel_index(
-        jnp.asarray(scene["grid_coord"]), jnp.asarray(scene["batch"]), jnp.asarray(scene["valid"]),
-        16, precomputed_perm=None if perm is None else jnp.asarray(perm.numpy()),
-    )
+    got = slotted_unique(code, _t(valid), _t(batch), SAMPLES, CAP, precomputed_perm=perm)
+    assert int(got.num_unique) == int(ref["num_unique"]) > SAMPLES * CAP
+    for field in SU_FIELDS[:-1]:
+        np.testing.assert_array_equal(getattr(got, field).numpy(), ref[field], err_msg=field)
 
 
 def _port_index(scene, perm):
@@ -110,45 +166,36 @@ def _port_index(scene, perm):
 
 
 @pytest.mark.parametrize("reuse", [False, True])
-def test_voxel_index_matches_jax(scene, reuse):
+def test_voxel_index_matches_jax(scene, reference, reuse):
     perm = _z_order(scene) if reuse else None
-    ref, got = _jax_index(scene, perm), _port_index(scene, perm)
-    np.testing.assert_array_equal(got.perm.numpy(), np.asarray(ref.perm))
-    np.testing.assert_array_equal(_u64(got.sorted_code), code_to_u64(ref.sorted_code))
+    ref_perm, ref_code = reference[f"index_{reuse}"]
+    got = _port_index(scene, perm)
+    np.testing.assert_array_equal(got.perm.numpy(), ref_perm)
+    np.testing.assert_array_equal(_u64(got.sorted_code), code_to_u64(ref_code))
 
 
 @pytest.mark.parametrize("kernel", [3, 5])
-def test_kernel_map_matches_jax(scene, kernel):
+def test_kernel_map_matches_jax(scene, reference, kernel):
     perm = _z_order(scene)
     spec = tsparse.SparseConvSpec.cube(kernel)
-    ref = jsparse.build_kernel_map(
-        _jax_index(scene, perm), jnp.asarray(scene["grid_coord"]), jnp.asarray(scene["batch"]),
-        jnp.asarray(scene["valid"]), jsparse.SparseConvSpec.cube(kernel), 16,
-    )
     got = tsparse.build_kernel_map(_port_index(scene, perm), _t(scene["grid_coord"]), _t(scene["batch"]),
                                    _t(scene["valid"]), spec, 16)
     assert got.neighbor_idx.dtype == torch.int32
-    np.testing.assert_array_equal(got.neighbor_idx.numpy(), np.asarray(ref.neighbor_idx))
+    np.testing.assert_array_equal(got.neighbor_idx.numpy(), reference[f"kmap_{kernel}"])
     n = SAMPLES * SLOT
     assert (got.neighbor_idx.numpy()[~scene["valid"]] == n).all()  # the sentinel in every pad column
     assert (got.neighbor_idx.numpy()[scene["valid"]] < n).sum() > 2 * scene["valid"].sum()  # real neighbors
 
 
-def _parent_pair(scene):
-    perm = _z_order(scene)
-    ref = jsparse.build_parent_index(
-        jnp.asarray(scene["grid_coord"]), jnp.asarray(scene["batch"]), jnp.asarray(scene["valid"]), 1, 16,
-        precomputed_perm=jnp.asarray(perm.numpy()),
-    )
-    got = tsparse.build_parent_index(_t(scene["grid_coord"]), _t(scene["batch"]), _t(scene["valid"]), 1, 16,
-                                     precomputed_perm=perm)
-    return ref, got
+def _port_parent(scene):
+    return tsparse.build_parent_index(_t(scene["grid_coord"]), _t(scene["batch"]), _t(scene["valid"]), 1, 16,
+                                      precomputed_perm=_z_order(scene))
 
 
-def test_parent_index_matches_jax(scene):
-    ref, got = _parent_pair(scene)
-    for field in ("cell_kmap", "cell_table", "cell_of", "parity"):
-        np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(ref, field)), err_msg=field)
+def test_parent_index_matches_jax(scene, reference):
+    got = _port_parent(scene)
+    for field in PARENT_FIELDS:
+        np.testing.assert_array_equal(getattr(got, field).numpy(), reference["parent"][field], err_msg=field)
 
 
 @pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
@@ -164,19 +211,12 @@ def test_segment_reductions_match_jax(reduce):
     assert (got[7] == 0).all()
 
 
-def test_cell_packed_conv_matches_jax(scene):
-    ref_parent, parent = _parent_pair(scene)
-    rng = np.random.default_rng(2)
-    n = SAMPLES * SLOT
-    feat = rng.normal(size=(n, 4)).astype(np.float32)
-    w = (0.1 * rng.normal(size=(125, 4, 8))).astype(np.float32)
-    b = rng.normal(size=8).astype(np.float32)
+def test_cell_packed_conv_matches_jax(scene, reference):
+    feat, w, b = _conv_case()
     spec = tsparse.SparseConvSpec.cube(5)
-    ref = jsparse.cell_packed_conv(jnp.asarray(feat), ref_parent, jnp.asarray(scene["valid"]), jnp.asarray(w),
-                                   jsparse.SparseConvSpec.cube(5), jnp.asarray(b))
-    got = tsparse.cell_packed_conv(_t(feat), parent, _t(scene["valid"]), _t(w), spec, _t(b))
+    got = tsparse.cell_packed_conv(_t(feat), _port_parent(scene), _t(scene["valid"]), _t(w), spec, _t(b))
     v = scene["valid"]
-    np.testing.assert_allclose(got.numpy()[v], np.asarray(ref)[v], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy()[v], reference["cell_packed"][v], rtol=1e-5, atol=1e-5)
 
 
 def test_sparse_conv_matches_jax(scene):
