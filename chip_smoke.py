@@ -269,7 +269,22 @@ Phases, each fatal on failure:
      padded to 8, its and SPVCNN's K = 27 convs) against their plain
      versions on the runs' maps, bit for bit run to run, timed per step and
      per scan beside their library calls and bounds;
- 43. summary: the script's duration, the kernels line (per keypoint training
+ 43. SLAM: the 175-frame loop circuit (``tools/make_synthetic_kitti.py``
+     with ``configs/slam/synth_loop.py``'s header flags) through the port's
+     ``run_slam`` on the card: ``synth_loop.py`` (odometry, ground-truth
+     labels; ATE <= 0.05 m) and ``synth_loop_full.py`` (keyframes, loop
+     closure, pose graph: live ATE <= 0.05 m, retro-corrected ATE <= 0.065
+     m, at least one closure, the counts beside JAX's CPU reading), each
+     scan's host ms and scans/s, one scan under torch.profiler and one under
+     CUDA's sync debug mode (one host read a scan: the pose); the first 20
+     frames on the CPU against the card (2e-3 m, 1e-3 rad a frame); the
+     model-label path (PT-v3m1 at slot 131,072, seeded weights) over 10
+     frames on the card (B1 22, B3 22 a scan, the share of points the
+     filter drops), 2 of its scans card against CPU as phase 42, the card's
+     labels through a CPU odometry against the card's poses; B1 on a
+     circuit scan's own attention inputs and B3 on its maps against their
+     plain versions, timed per scan;
+ 44. summary: the script's duration, the kernels line (per keypoint training
      step: launches, errors and times of the training levels; B1 and B3 also
      per bench forward in bf16; B1-B4 per pigseg step, ``pigseg_*``, and per
      amp step, ``amp_*``; per r3 step, ``r3_step_*``, and B1 and B3 per r3
@@ -297,6 +312,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -316,9 +332,11 @@ from pointcept_keypointdetection_tpu_torch import (
     inference_split,
     serve,
 )
+from pointcept_keypointdetection_tpu_torch import run_slam
 from pointcept_keypointdetection_tpu_torch import test as test_cli
 from pointcept_keypointdetection_tpu_torch.convert import load_jax_checkpoint, load_weights
 from pointcept_keypointdetection_tpu_torch.datasets import build_dataset
+from pointcept_keypointdetection_tpu_torch.datasets import semantic_kitti as semantic_kitti_module
 from pointcept_keypointdetection_tpu_torch.datasets.collate import collate
 from pointcept_keypointdetection_tpu_torch.datasets.dataloader import Dataloader
 from pointcept_keypointdetection_tpu_torch.datasets.synthetic import SyntheticKeypointDataset, body_cloud, make_pig
@@ -334,6 +352,7 @@ from pointcept_keypointdetection_tpu_torch.inference.keypoint import (
     estimate_normals_curvature,
 )
 from pointcept_keypointdetection_tpu_torch.inference.segment import SegmentPredictor
+from pointcept_keypointdetection_tpu_torch.inference import semantic_scan
 from pointcept_keypointdetection_tpu_torch.inference.semantic_scan import SemanticScanPredictor
 from pointcept_keypointdetection_tpu_torch.kernels import _build
 from pointcept_keypointdetection_tpu_torch.kernels import patch_attention as pa
@@ -348,6 +367,7 @@ from pointcept_keypointdetection_tpu_torch.ops import cluster as cluster_module
 from pointcept_keypointdetection_tpu_torch.ops import sparse as sp
 from pointcept_keypointdetection_tpu_torch.ops.segment import segment_mean, segment_mean_in_order, segment_sum_in_order
 from pointcept_keypointdetection_tpu_torch.ops.serialization import z_order_encode_np
+from pointcept_keypointdetection_tpu_torch.slam.pipeline import LidarOdometry, OdometryConfig
 from pointcept_keypointdetection_tpu_torch.utils.checkpoint import load_checkpoint
 from pointcept_keypointdetection_tpu_torch.utils.config import Config
 from pointcept_keypointdetection_tpu_torch.utils.events import EventStorage
@@ -3966,6 +3986,292 @@ def phase_kitti(kernels: list) -> None:
               f"share {prof['idle_share']:.3f}, {prof['kernels']} kernels {stamp()}")
 
 
+SLAM_CIRCUIT = ["--frames", "175", "--loop", "--straight", "40", "--radius", "16", "--step", "1.2", "--n-cars", "8"]
+SLAM_ODOMETRY = "configs/slam/synth_loop.py"
+SLAM_FULL = "configs/slam/synth_loop_full.py"
+SLAM_ATE_MAX = 0.05  # m: the odometry's and the back end's live ATE (JAX's committed odometry trajectory: 0.0266)
+SLAM_RETRO_ATE_MAX = 0.065  # m: the back end's retro-corrected ATE
+# tools/run_slam.py with the JAX package on a CPU over the same circuit (synth_loop_full.py)
+SLAM_JAX_CPU = dict(keyframes=88, edges=100, closures=13, ate=0.032, ate_live=0.026)
+SLAM_CPU_FRAMES = 20
+SLAM_CPU_POS_TOL = 2e-3  # m a frame, card against CPU
+SLAM_CPU_ROT_TOL = 1e-3  # rad a frame
+SLAM_MODEL_FRAMES = 10
+SLAM_MODEL_CPU_SCANS = 2
+
+
+def pose_gaps(card: np.ndarray, cpu: np.ndarray):
+    """Per frame: the largest position difference (m) and the rotation angle between two trajectories of
+    3x4 rows (the sine of the angle, from the skew part of Ra^T Rb, exact near 0)."""
+    a, b = card.reshape(-1, 3, 4).astype(np.float64), cpu.reshape(-1, 3, 4).astype(np.float64)
+    pos = np.abs(a[:, :, 3] - b[:, :, 3]).max(1)
+    d = np.einsum("nji,njk->nik", a[:, :, :3], b[:, :, :3])
+    skew = np.stack([d[:, 2, 1] - d[:, 1, 2], d[:, 0, 2] - d[:, 2, 0], d[:, 1, 0] - d[:, 0, 1]], 1)
+    return pos, np.arcsin(np.clip(np.linalg.norm(skew, axis=1) / 2, 0, 1))
+
+
+def check_pose_gaps(label: str, card: np.ndarray, cpu: np.ndarray) -> None:
+    pos, rot = pose_gaps(card, cpu)
+    print(f"{label}: card vs cpu over {len(pos)} frames: worst position gap {pos.max():.3e} m (frame "
+          f"{int(pos.argmax())}), worst rotation gap {rot.max():.3e} rad (frame {int(rot.argmax())}); "
+          f"{int((pos > 0).sum())} frames not bit for bit; tol {SLAM_CPU_POS_TOL:g} m, {SLAM_CPU_ROT_TOL:g} rad "
+          f"{stamp()}")
+    if pos.max() > SLAM_CPU_POS_TOL or rot.max() > SLAM_CPU_ROT_TOL:
+        raise AssertionError(f"{label}: card and CPU poses disagree")
+
+
+def slam_run(config: str, root: str, device: str = "cuda", frames=None, options=()) -> dict:
+    """The port's ``run_slam`` over the written circuit, as a user calls it."""
+    argv = ["--config-file", config, "--device", device, "--options", f"data_root={root}",
+            f"save_path={os.path.join(root, 'exp')}", *options]
+    if frames:
+        argv += ["--max-frames", str(frames)]
+    torch.cuda.synchronize()
+    return run_slam.main(argv)
+
+
+def circuit_scan(root: str, i: int):
+    seq = os.path.join(root, "dataset", "sequences", "00")
+    scan = semantic_kitti_module.read_scan(os.path.join(seq, "velodyne", f"{i:06d}.bin"))
+    return scan, semantic_kitti_module.read_label(os.path.join(seq, "labels", f"{i:06d}.label"))
+
+
+def slam_scan_profile(engine, root: str, label: str, sync_check: bool) -> dict:
+    """One more scan of the circuit (its last) through the engine after its run, under torch.profiler; with
+    ``sync_check`` (an odometry) one more under CUDA's sync debug mode, where the step's only synchronizing
+    call must be the pose's read."""
+    import warnings
+
+    scan, labels = circuit_scan(root, 174)
+    prof = profile_run(f"one {label} scan", lambda: engine.process(scan, labels), top=10)
+    if sync_check:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                engine.process(scan, labels)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+        print(f"one {label} scan under CUDA's sync debug mode: {len(syncs)} synchronizing call(s) {stamp()}")
+        if len(syncs) != 1:
+            raise AssertionError(f"{label}: a scan synchronized {len(syncs)} times, not once (the pose's read)")
+    return prof
+
+
+def phase_slam_runs(root: str) -> dict:
+    """The odometry and the back end over the circuit on the card, each run's launches counted (the odometry
+    is plain torch: none), ATE, RPE and the graph's counts checked; the first frames on the CPU meanwhile."""
+    cpu = start_cpu_odometry(root)
+    try:
+        out = {}
+        for key, config in (("odometry", SLAM_ODOMETRY), ("full", SLAM_FULL)):
+            set_launch_counts_to_zero()
+            res = slam_run(config, root)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            engine = res["engine"]
+            scans = len(res["step_ms"])
+            line = (f"slam {key} ({config}): {scans} scans in {res['seconds']:.2f} s, {scans / res['seconds']:.3f} "
+                    f"scans/s, median host ms a scan {statistics.median(res['step_ms'][1:]):.2f} (frames 2-{scans}), "
+                    f"ATE {res['ate']:.4f} m, RPE@10 {res['rpe']:.4f} m")
+            if key == "full":
+                line += (f", live ATE {res['ate_live']:.4f} m; keyframes {engine.keyframe_count}, edges "
+                         f"{engine.edge_count}, loop closures {engine.loop_count} (JAX on a CPU: "
+                         f"{SLAM_JAX_CPU['keyframes']}, {SLAM_JAX_CPU['edges']}, {SLAM_JAX_CPU['closures']}; ATE "
+                         f"{SLAM_JAX_CPU['ate']}, live {SLAM_JAX_CPU['ate_live']})")
+            print(f"{line}; launches {counts} {stamp()}")
+            if any(counts.values()):
+                raise AssertionError(f"slam {key}: the odometry launched kernels {counts}")
+            if not np.isfinite(res["trajectory"]).all() or res["trajectory"].shape != (175, 12):
+                raise AssertionError(f"slam {key}: trajectory {res['trajectory'].shape} is not 175 finite 3x4 poses")
+            if key == "odometry" and res["ate"] > SLAM_ATE_MAX:
+                raise AssertionError(f"slam odometry: ATE {res['ate']:.4f} m > {SLAM_ATE_MAX}")
+            if key == "full" and (res["ate_live"] > SLAM_ATE_MAX or res["ate"] > SLAM_RETRO_ATE_MAX
+                                  or engine.loop_count < 1):
+                raise AssertionError(f"slam full: live ATE {res['ate_live']:.4f}, retro ATE {res['ate']:.4f}, "
+                                     f"{engine.loop_count} closures")
+            res["profile"] = slam_scan_profile(engine, root, f"slam {key}", sync_check=key == "odometry")
+            out[key] = res
+        check_pose_gaps("slam odometry", out["odometry"]["trajectory"][:SLAM_CPU_FRAMES], finish_cpu_odometry(cpu))
+    finally:
+        if cpu[0].poll() is None:  # a card run failed: stop the CPU run too
+            cpu[0].kill()
+            cpu[0].wait()
+    return out
+
+
+def start_cpu_odometry(root: str):
+    """``run_slam`` of ``synth_loop.py`` over the first SLAM_CPU_FRAMES frames on the CPU, in a process of its
+    own beside the card's runs (on all cores but one, at nice 10, so that the host thread driving the card
+    keeps its core): (the process, its trajectory's .npy, the start time)."""
+    out = os.path.join(root, "cpu_trajectory.npy")
+    threads = max(1, len(os.sched_getaffinity(0)) - 1)
+    code = ("import os, sys, numpy as np, torch; os.nice(10); torch.set_num_threads(int(sys.argv[2])); "
+            "from pointcept_keypointdetection_tpu_torch import run_slam; "
+            "np.save(sys.argv[1], run_slam.main(sys.argv[3:])['trajectory'])")
+    argv = [sys.executable, "-c", code, out, str(threads), "--config-file", SLAM_ODOMETRY, "--device", "cpu",
+            "--max-frames", str(SLAM_CPU_FRAMES), "--options", f"data_root={root}",
+            f"save_path={os.path.join(root, 'exp_cpu')}"]
+    return subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out, time.perf_counter()
+
+
+def finish_cpu_odometry(cpu) -> np.ndarray:
+    proc, out, t0 = cpu
+    try:
+        log, _ = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"slam odometry on the CPU ({SLAM_CPU_FRAMES} frames, its own process beside the card's runs): done "
+          f"{time.perf_counter() - t0:.1f} s after its start, exit {proc.returncode} {stamp()}")
+    if proc.returncode != 0:
+        raise AssertionError(f"slam odometry on the CPU failed:\n{log[-3000:]}")
+    return np.load(out)
+
+
+@contextlib.contextmanager
+def recorded_labeller():
+    """Every ``SemanticScanPredictor`` call's (predictor, scan, labels, embedding)."""
+    calls, plain = [], semantic_scan.SemanticScanPredictor.__call__
+
+    def spy(self, scan):
+        labels, emb = plain(self, scan)
+        calls.append((self, scan, labels, emb))
+        return labels, emb
+
+    semantic_scan.SemanticScanPredictor.__call__ = spy
+    try:
+        yield calls
+    finally:
+        semantic_scan.SemanticScanPredictor.__call__ = plain
+
+
+def phase_slam_model_labels(root: str) -> dict:
+    """``synth_loop.py`` with its labels from PT-v3m1 (seeded weights, slot 131,072) over SLAM_MODEL_FRAMES
+    frames on the card: B1 and B3 per scan, rulebooks, the labeller's ms a scan and the share of points the
+    filter drops; SLAM_MODEL_CPU_SCANS scans card against CPU as phase 42; the card's labels through a CPU
+    odometry against the card's poses."""
+    bb = Config.fromfile(KITTI_CONFIGS["ptv3"]).model.backbone
+    expect, books = kitti_expect("ptv3", bb, training=False)
+    opts = ("semantic.labels_from=model", f"semantic.config={KITTI_CONFIGS['ptv3']}")
+    with recorded_labeller() as calls:
+        set_launch_counts_to_zero()
+        res = slam_run(SLAM_ODOMETRY, root, frames=SLAM_MODEL_FRAMES, options=opts)
+        torch.cuda.synchronize()
+        counts, rulebooks = launch_counts(), sc.rulebook_builds
+    per_scan = {name: n / SLAM_MODEL_FRAMES for name, n in counts.items()}
+    dynamic = tuple(Config.fromfile(SLAM_ODOMETRY).semantic.dynamic_classes)
+    dropped = [float(np.isin(labels, dynamic).mean()) for _, _, labels, _ in calls]
+    print(f"slam model labels: {SLAM_MODEL_FRAMES} frames, launches per scan {per_scan}, rulebooks "
+          f"{rulebooks / SLAM_MODEL_FRAMES:g} a scan; labeller median {statistics.median(res['label_ms'][1:]):.2f} "
+          f"ms a scan (host clock, scans 2-{SLAM_MODEL_FRAMES}), odometry median "
+          f"{statistics.median(res['step_ms'][1:]):.2f} ms; the filter drops {np.mean(dropped):.4f} of the points "
+          f"(per scan {min(dropped):.4f}-{max(dropped):.4f}) {stamp()}")
+    if len(calls) != SLAM_MODEL_FRAMES or {k: v for k, v in per_scan.items()} != {k: float(v) for k, v in
+                                                                                  expect.items()}:
+        raise AssertionError(f"slam model labels: {len(calls)} labeller calls, launches per scan {per_scan}, "
+                             f"expected {expect}")
+    if rulebooks != books * SLAM_MODEL_FRAMES:
+        raise AssertionError(f"slam model labels: {rulebooks} rulebooks, expected {books} a scan")
+    predictor = calls[0][0]
+    cpu = SemanticScanPredictor(KITTI_CONFIGS["ptv3"], None, KITTI_SLOT, "cpu")
+    cpu.model.load_state_dict({k: v.detach().cpu() for k, v in predictor.model.state_dict().items()})
+    for _, scan, labels, emb in calls[:SLAM_MODEL_CPU_SCANS]:
+        outs = [p.infer(scan, logits=True) for p in (predictor, cpu)]
+        np.testing.assert_array_equal(outs[0]["labels"], labels)
+        compare_seg_labels("slam labeller", outs[0], outs[1], outs[0]["labels"], outs[1]["labels"])
+        err = float(np.abs(outs[0]["embedding"] - outs[1]["embedding"]).max())
+        scale = max(1.0, float(np.abs(outs[1]["embedding"]).max()))
+        print(f"slam labeller card vs cpu embedding: max_abs_err={err:.3e}, tol {CPU_TOL:g} x {scale:.3f} {stamp()}")
+        if err > CPU_TOL * scale or not np.allclose(outs[0]["embedding"], emb):
+            raise AssertionError(f"slam labeller: card and CPU embeddings disagree: {err:.3e}")
+    del cpu
+    odo_cfg = Config.fromfile(SLAM_ODOMETRY)
+    odo = LidarOdometry(OdometryConfig(dynamic_classes=dynamic, **dict(odo_cfg.odometry)), "cpu")
+    cpu_traj = np.stack([odo.process(scan, labels)[:3].reshape(-1) for _, scan, labels, _ in calls])
+    check_pose_gaps("slam odometry on the card's labels", res["trajectory"], cpu_traj)
+    return dict(counts=counts, per_scan=per_scan, predictor=predictor, label_ms=res["label_ms"], dropped=dropped)
+
+
+def phase_slam_kernels(predictor, root: str, per_scan: dict) -> tuple:
+    """B1 on each of its calls' own inputs in one circuit scan's forward (the scan's fill of the slot) and B3
+    on that scan's kernel maps (random features), f32 against their plain versions; each timed beside its
+    library call and bound at every PT-v3m1 level, summed per scan.  Returns (sums, largest errors)."""
+    scan, _ = circuit_scan(root, 0)
+    data = predictor.voxelize(scan)[0]
+    print(f"slam scan: {scan.shape[0]} points, {data['coord'].shape[0]} voxels in the {KITTI_SLOT} slot "
+          f"(fill {data['coord'].shape[0] / KITTI_SLOT:.3f})")
+    batch = sample_to_device(collate([data], KITTI_SLOT), "cuda")
+    captured, plain_fwd = [], pa._forward_kernel
+
+    def spy(qkv, valid, patch_size, scale, *args, **kwargs):
+        captured.append((qkv.detach().clone(), valid.clone(), patch_size, scale))
+        return plain_fwd(qkv, valid, patch_size, scale, *args, **kwargs)
+
+    def run():
+        with torch.inference_mode():
+            predictor.model(build_point_batch(batch, 1))
+
+    pa._forward_kernel = spy
+    try:
+        maps = capture_maps(predictor.model, run, "slam scan")
+    finally:
+        pa._forward_kernel = plain_fwd
+    errors = {"patch_attention_fwd": 0.0, "subm_conv_fwd": 0.0}
+    for qkv, valid, patch, scale in captured:
+        label = (f"B1 patch_attention on a circuit scan's inputs N={qkv.shape[0]} H={qkv.shape[2]} patch={patch} "
+                 f"valid={int(valid.sum())}")
+        errors["patch_attention_fwd"] = max(errors["patch_attention_fwd"], check(
+            label, pa.patch_attention(qkv, valid, patch, scale), pa.patch_attention_plain(qkv, valid, patch, scale),
+            *TOL[torch.float32]))
+    if len(captured) != per_scan["patch_attention_fwd"]:
+        raise AssertionError(f"slam scan: {len(captured)} B1 calls captured, the path made "
+                             f"{per_scan['patch_attention_fwd']} a scan")
+    rng = np.random.default_rng(73)
+    sums = {}
+    bb = predictor.cfg.model.backbone
+    for (n, c, heads, patch), depth in seg_shapes(bb, KITTI_SLOT, 1).items():
+        errors["subm_conv_fwd"] = max(errors["subm_conv_fwd"], check_conv(rng, maps[n], c, torch.float32))
+        print(f"slam scan level N={n} C={c} H={heads} patch={patch} f32 (x{depth} Blocks per scan):")
+        add_row(sums, "patch_attention_fwd", time_attention(rng, n, heads, patch, torch.float32, False), depth)
+        add_row(sums, "subm_conv_fwd", time_conv(rng, maps[n], c, torch.float32, dw=False), depth)
+    for name, t in sums.items():
+        print(f"{name} per slam scan (f32, sum over its {per_scan[name]:g} launches): kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"{stamp()}")
+    return sums, errors
+
+
+def phase_slam(kernels: list) -> None:
+    """Phase 43: the SLAM bridge's odometry and back end over the loop circuit, the labeller in the loop, B1
+    and B3 at a circuit scan's occupancy.  Adds ``slam_scan_b1_*`` (to B1's row) and ``slam_scan_b3_*`` (to
+    B3's) to the kernels line."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "tools/make_synthetic_kitti.py", "--out", root, *SLAM_CIRCUIT], check=True,
+                       capture_output=True)
+        print(f"slam circuit: 175 frames written in {time.perf_counter() - t0:.1f} s {stamp()}")
+        runs = phase_slam_runs(root)
+        model = phase_slam_model_labels(root)
+        sums, errors = phase_slam_kernels(model["predictor"], root, model["per_scan"])
+    for key, run in runs.items():
+        prof = run["profile"]
+        print(f"slam {key}: profiled scan wall {prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms, idle "
+              f"share {prof['idle_share']:.3f}, {prof['kernels']} kernel launches {stamp()}")
+    bound_by = lambda t: "operations" if t["t_ops"] >= t["t_bytes"] else "bytes"  # noqa: E731
+    for row in kernels:
+        tag = {"patch_attention_fwd": "b1", "subm_conv_fwd": "b3"}.get(row["name"])
+        if tag:
+            t = sums[row["name"]]
+            row.update({f"slam_scan_{tag}_launches": model["per_scan"][row["name"]],
+                        f"slam_scan_{tag}_max_abs_err": errors[row["name"]], f"slam_scan_{tag}_ms": t["ms"],
+                        f"slam_scan_{tag}_plain_ms": t["plain_ms"], f"slam_scan_{tag}_library_ms": t["library_ms"],
+                        f"slam_scan_{tag}_bound_ms": t["bound_ms"], f"slam_scan_{tag}_bound_by": bound_by(t)})
+
+
 def mark(phases: str, t_start: float) -> None:
     """The script's clock at the end of ``phases``: what each part of the time limit goes to."""
     print(f"chip_smoke clock: {phases} done at {time.perf_counter() - t_start:.1f} s {stamp()}")
@@ -4118,6 +4424,8 @@ def main() -> None:
     mark("phase 41 (the last four keypoint backbones)", t_start)
     phase_kitti(kernels)
     mark("phase 42 (SemanticKITTI)", t_start)
+    phase_slam(kernels)
+    mark("phase 43 (SLAM)", t_start)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s {stamp()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ of each key (``np.unique`` with ``return_index`` and ``return_inverse``);
 eval mode; the argmax of each row's logits, mapped back to every raw point
 through the inverse; and the embedding, the mean of the segmentor's
 ``backbone_feat`` over the valid rows (``DefaultSegmentor``: its logits,
-``DefaultSegmentorV2``: the features before its head).
+``DefaultSegmentorV2``: the features before its head), or of its logits
+where the segmentor hands out no ``backbone_feat`` (its ``forward`` takes
+no such argument), as JAX falls back where a model sows none.
 
 As in JAX, a scan with more voxels than the slot is subsampled to the slot
 from the global ``np.random`` by the padding, and then mapping the labels
@@ -18,6 +20,7 @@ back fails (an ``IndexError``): pick a slot that holds the scan.
 
 from __future__ import annotations
 
+import inspect
 import threading
 from typing import Optional, Tuple, Union
 
@@ -71,8 +74,9 @@ class SemanticScanPredictor:
         batch = sample_to_device(collate([pad_sample(data, self.slot, np.random)], self.slot), self.device)
         with self._lock, torch.inference_mode():
             point = build_point_batch(batch, 1)
-            out = self.model(point, backbone_feat=True)
-            feat = out["backbone_feat"]
+            takes = "backbone_feat" in inspect.signature(self.model.forward).parameters
+            out = self.model(point, backbone_feat=True) if takes else self.model(point)
+            feat = out.get("backbone_feat", out["seg_logits"])
             w = point.valid.to(feat.dtype)[:, None]
             emb = (feat * w).sum(0) / w.sum().clamp_min(1.0)
             pred = out["seg_logits"].argmax(-1).cpu().numpy()

@@ -29,14 +29,20 @@ read (its rows).
 ``knn_query_index`` `:305-463`) is the grid-bucketed search with JAX's
 semantics, not its layout:
 
-* cells are ``floor(coord / cell_size)`` rebased so that the smallest valid
-  cell of the whole base is 1 on each axis; a base point outside the
-  ``2^depth`` domain is dropped;
-* the base is sorted stably by (sample, z code of its cell); a query looks
-  at the cells of ``_ring_offsets`` (the 27 of the unit cube at radius 1),
-  in that order, and in each only at the first ``cell_cap`` rows of the
-  cell's run (a run is found by ``searchsorted``, where JAX joins by a sort
-  and a scan); a row of another cell or sample counts as ``_BIG``;
+* cells are ``floor((coord - lattice_origin) / cell_size)`` (no shift
+  without ``lattice_origin``) rebased so that the smallest valid cell of
+  the whole base is 1 on each axis; a base point outside the ``2^depth``
+  domain is dropped, and a ring cell outside it misses;
+* the base is sorted stably by (sample, z code of its cell), so a cell of
+  more than ``cell_cap`` rows keeps its first rows in base-row order; a
+  query looks at the cells of ``_ring_offsets`` (the 27 of the unit cube at
+  radius 1; the sphere-pruned cube at ``ring_radius`` r, or the cells
+  within ``ring_corr_cells`` of the query's cell), in that order, and in
+  each at the ``cell_cap`` sorted rows from the first of the cell's run (a
+  run is found by ``searchsorted``, where JAX joins by a sort and a scan);
+  a row of another cell or sample counts as ``_BIG`` unless
+  ``verify_codes`` is off, when it counts at its distance (JAX's unit-cell
+  search over the SLAM map, ``cell_cap`` 1);
 * distances are the per-axis squared differences summed in f32, x then y
   then z, as JAX rounds them outside ``jit`` (under ``jit`` XLA's CPU code
   fuses two of the products into multiply-adds: the same indices,
@@ -47,13 +53,18 @@ semantics, not its layout:
 * a slot no candidate fills carries ``sqdist`` >= ``_BIG`` and the index of
   the nearest candidate found (0 where none is).
 
-It stays plain torch and makes no host read: [Q, 27 x cell_cap] candidates,
-in blocks of ``query_chunk`` queries.
+It stays plain torch and makes no host read on the card: [Q, ring x
+cell_cap] candidates, in blocks of ``query_chunk`` queries.  On the CPU the
+window of each cell stops at the longest run any query finds (one host
+read, free there): the rows past it are masked in any case, so the result
+is the same.  JAX's ``single_lane``
+(one u32 sort key where the codes fit 31 bits) is a layout of its (hi, lo)
+code pairs: the port's codes are one int64 and need no such switch.
 
 ``three_nn_interpolate`` (`knn.py:531-558`; Swin3D's up-sampling, PT-v1's
 ``TransitionUp``) takes ``knn`` or, with ``cell_size`` > 0, ``knn_bucketed``
 at ``cell_cap`` 64: weights 1 / max(d^2, 1e-8), normalized.  Not ported:
-``ball_query``.
+``ball_query`` (`knn.py:498`).
 """
 
 from __future__ import annotations
@@ -81,12 +92,14 @@ def _ordered(d: torch.Tensor) -> torch.Tensor:
     return (bits ^ ((bits >> 31) & 0x7FFFFFFF)).to(torch.int64)
 
 
-def _smallest(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _smallest(d: torch.Tensor, k: int, nonneg: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, columns) of the k smallest entries of each row of ``d``, in order of (value, column).
 
     ``torch.topk`` promises no order among equal values, so it runs over int64 keys
-    (ordered value << 32 | column), which are all distinct."""
-    key = _ordered(d) * 2**32 + torch.arange(d.shape[1], device=d.device)
+    (ordered value << 32 | column), which are all distinct.  ``nonneg``: every entry is >= 0, whose f32 bits
+    already sort as the values."""
+    bits = d.contiguous().view(torch.int32).to(torch.int64) if nonneg else _ordered(d)
+    key = (bits << 32) | torch.arange(d.shape[1], device=d.device)
     cols = torch.topk(key, k, dim=1, largest=False, sorted=True).indices
     return d.gather(1, cols), cols
 
@@ -137,12 +150,19 @@ def knn(
     return idx, sqd
 
 
-def _ring_offsets(radius: int) -> np.ndarray:
+def _ring_offsets(radius: int, corr_cells: Optional[float] = None) -> np.ndarray:
     """The cell ring, in JAX's order (`knn.py:280-302`): the cube of ``radius`` cut to the cells within L2
-    reach of the query's cell, |d|_2 <= r + sqrt(3) (all 27 at radius 1)."""
+    reach of the query's cell, |d|_2 <= r + sqrt(3) (all 27 at radius 1); with ``corr_cells`` (the search's
+    distance gate in cells) cut instead to the cells that can hold a point within the gate of a point of the
+    query's cell, |max(|d| - 1, 0)|_2 <= corr_cells."""
     g = np.arange(-radius, radius + 1)
     d = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
-    return d[np.sum(d * d, axis=1) <= (radius + np.sqrt(3.0)) ** 2].astype(np.int64)
+    if corr_cells is not None:
+        m = np.maximum(np.abs(d) - 1, 0)
+        keep = np.sum(m * m, axis=1) <= corr_cells**2
+    else:
+        keep = np.sum(d * d, axis=1) <= (radius + np.sqrt(3.0)) ** 2
+    return d[keep].astype(np.int64)
 
 
 class KnnIndex(NamedTuple):
@@ -154,18 +174,22 @@ class KnnIndex(NamedTuple):
     origin: torch.Tensor  # int64[3]: the cell origin (the cells are rebased to it)
 
 
-def _cells(coord: torch.Tensor, cell_size: float) -> torch.Tensor:
+def _cells(coord: torch.Tensor, cell_size: float, lattice_origin=None) -> torch.Tensor:
+    if lattice_origin is not None:
+        coord = coord - torch.as_tensor(lattice_origin, dtype=torch.float32).to(coord.device, non_blocking=True)
     return torch.floor(coord * torch.tensor(1.0 / cell_size, dtype=torch.float32)).to(torch.int32).to(torch.int64)
 
 
 def build_knn_index(base: torch.Tensor, cell_size: float, base_batch: Optional[torch.Tensor] = None,
-                    base_valid: Optional[torch.Tensor] = None, cell_cap: int = 32, depth: int = 16) -> KnnIndex:
-    """The sorted-cell index of ``base`` [N, 3] (`knn.py:208-277`)."""
+                    base_valid: Optional[torch.Tensor] = None, cell_cap: int = 32, depth: int = 16,
+                    lattice_origin=None) -> KnnIndex:
+    """The sorted-cell index of ``base`` [N, 3] (`knn.py:208-277`).  ``lattice_origin``: the world point of
+    cell (0, 0, 0), the voxel map's origin where the cells are its voxels."""
     n, device = base.shape[0], base.device
     base = base.float()
     valid = torch.ones(n, dtype=torch.bool, device=device) if base_valid is None else base_valid.bool()
     batch = torch.zeros(n, dtype=torch.int64, device=device) if base_batch is None else base_batch.to(torch.int64)
-    cell = _cells(base, cell_size)
+    cell = _cells(base, cell_size, lattice_origin)
     origin = torch.where(valid[:, None], cell, torch.full_like(cell, 2**20)).min(0).values - 1
     cell = cell - origin
     inside = valid & ((cell >= 0) & (cell < (1 << depth))).all(1)
@@ -180,17 +204,20 @@ def build_knn_index(base: torch.Tensor, cell_size: float, base_batch: Optional[t
 
 def knn_query_index(index: KnnIndex, query: torch.Tensor, k: int, cell_size: float,
                     query_batch: Optional[torch.Tensor] = None, cell_cap: int = 32, query_chunk: int = 8192,
-                    depth: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+                    depth: int = 16, ring_radius: int = 1, verify_codes: bool = True, lattice_origin=None,
+                    ring_corr_cells: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(idx int32[Q, k], sqdist f32[Q, k]) of each query's k nearest candidates in a built index
-    (`knn.py:305-463`); ``cell_size``, ``cell_cap`` and ``depth`` as at the build.  JAX's options for the SLAM
-    map (``lattice_origin``, ``ring_radius``, ``ring_corr_cells``, ``verify_codes=False``, ``single_lane``) are not
-    ported: the ring is radius 1's."""
+    (`knn.py:305-463`); ``cell_size``, ``cell_cap``, ``depth`` and ``lattice_origin`` as at the build.
+
+    ``ring_radius`` and ``ring_corr_cells`` choose the ring (``_ring_offsets``); ``verify_codes=False`` lets
+    the rows past a cell's run count at their distances (exact for a nearest-neighbour search of one sample,
+    where they are other cells' real points; JAX's unit-cell SLAM search, ``cell_cap`` 1)."""
     n, q, device = index.code.shape[0], query.shape[0], query.device
     query = query.float()
     batch = torch.zeros(q, dtype=torch.int64, device=device) if query_batch is None else query_batch.to(torch.int64)
-    offsets = torch.from_numpy(_ring_offsets(1)).to(device)
+    offsets = torch.from_numpy(_ring_offsets(ring_radius, ring_corr_cells)).to(device, non_blocking=True)
     ring = len(offsets)
-    cell = (_cells(query, cell_size) - index.origin)[:, None, :] + offsets  # [Q, ring, 3]
+    cell = (_cells(query, cell_size, lattice_origin) - index.origin)[:, None, :] + offsets  # [Q, ring, 3]
     inside = ((cell >= 0) & (cell < (1 << depth))).all(-1)
     code = code_or_batch(z_order_encode(cell.clamp(0, (1 << depth) - 1).reshape(-1, 3), depth),
                          batch.repeat_interleave(ring), depth).reshape(q, ring)
@@ -198,20 +225,29 @@ def knn_query_index(index: KnnIndex, query: torch.Tensor, k: int, cell_size: flo
     head = torch.searchsorted(index.code, code)  # the first row of the cell's run
     found = (head < n) & (index.code[head.clamp(max=max(n - 1, 0))] == code) & (code != CODE_MAX)
     head = torch.where(found, head, torch.full_like(head, n))
+    # rows past the run's length hold other cells (JAX's code check fails there); a ring cell outside the
+    # domain reads the padding, whose sentinel code JAX's check passes (distances of 1e20 and more)
+    run = torch.where(found, torch.searchsorted(index.code, code, right=True) - head, torch.zeros_like(head))
+    if verify_codes and device.type == "cpu" and q:
+        # on the CPU (where reading the host costs nothing) the window stops at the longest run: the rows past
+        # it are masked anyway, and the candidates keep their order, so the k nearest and their ties are the same
+        cell_cap = max(1, min(cell_cap, int(torch.where(found, run, torch.zeros_like(run)).max())))
+    run = torch.where(code == CODE_MAX, torch.full_like(run, cell_cap), run)
     steps = torch.arange(cell_cap, device=device)
     idx = torch.empty((q, k), dtype=torch.int32, device=device)
     sqd = torch.empty((q, k), dtype=torch.float32, device=device)
-    codes = torch.cat([index.code, torch.full((cell_cap,), CODE_MAX, dtype=torch.int64, device=device)])
     for start in range(0, q, query_chunk):
         block = slice(start, start + query_chunk)
-        rows = (head[block][:, :, None] + steps).reshape(head[block].shape[0], ring * cell_cap)
+        m = head[block].shape[0]
+        rows = (head[block][:, :, None] + steps).reshape(m, ring * cell_cap)
         diff = index.pos[rows] - query[block][:, None, :]
         sq = diff * diff
         d = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
-        same_cell = codes[rows] == code[block].repeat_interleave(cell_cap, 1)
-        d = torch.where(same_cell, d, torch.full((), _BIG, device=device))
-        vals, cols = _smallest(d, k)
-        cand = index.row[rows].gather(1, cols)
+        if verify_codes:
+            same_cell = (steps < run[block][:, :, None]).reshape(m, ring * cell_cap)
+            d = torch.where(same_cell, d, torch.full((), _BIG, device=device))
+        vals, cols = _smallest(d, k, nonneg=True)
+        cand = index.row[rows.gather(1, cols)]
         idx[block] = torch.where(vals < _BIG, cand, cand[:, :1]).to(torch.int32)
         sqd[block] = vals
     return idx, sqd

@@ -54,17 +54,20 @@ def slotted_unique(
     num_unique = seg[-1] + 1 if n > 0 else torch.zeros((), dtype=torch.int64, device=dev)
     seg = torch.where(sorted_valid & (seg >= 0), seg, torch.full_like(seg, n))
 
+    # every scatter below sends the entries it drops to one spare row past the end, so the function makes no
+    # host read (a boolean mask's count would be one)
     positions = torch.arange(n, device=dev)
-    head_index = torch.full((n,), n, dtype=torch.int64, device=dev)
-    head_index[seg[is_head]] = positions[is_head]  # global unique -> its first sorted position
+    head_index = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
+    head_index.scatter_(0, torch.where(is_head, seg, n), positions)  # global unique -> its first sorted position
+    head_index = head_index[:n]
 
     m = num_samples * slot_capacity
     has_head = head_index < n
     head_input_row = perm[head_index.clamp(max=n - 1)]
     head_batch = torch.where(has_head, batch.to(torch.int64)[head_input_row], torch.full_like(head_index, num_samples))
     gids = torch.arange(n, device=dev)
-    base = torch.full((num_samples,), n, dtype=torch.int64, device=dev)
-    base.scatter_reduce_(0, head_batch[has_head], gids[has_head], reduce="amin")
+    base = torch.full((num_samples + 1,), n, dtype=torch.int64, device=dev)
+    base.scatter_reduce_(0, head_batch, gids, reduce="amin")
     rank = gids - base[head_batch.clamp(max=num_samples - 1)]
     slot_ok = has_head & (rank >= 0) & (rank < slot_capacity)
     out_row_of_unique = torch.where(slot_ok, head_batch * slot_capacity + rank, torch.full_like(rank, m))
@@ -73,10 +76,12 @@ def slotted_unique(
     parent_row = torch.empty_like(parent_sorted)
     parent_row[perm] = parent_sorted
 
-    head_row = torch.full((m,), n, dtype=torch.int64, device=dev)
-    head_row[out_row_of_unique[slot_ok]] = head_input_row[slot_ok]
+    head_row = torch.full((m + 1,), n, dtype=torch.int64, device=dev)
+    head_row.scatter_(0, out_row_of_unique, head_input_row)
+    head_row = head_row[:m]
     out_valid = head_row < n
     kept = valid & (parent_row < m)
-    counts = torch.zeros((m,), dtype=torch.int64, device=dev)
-    counts.index_add_(0, parent_row[kept], torch.ones_like(parent_row[kept]))
+    counts = torch.zeros((m + 1,), dtype=torch.int64, device=dev)
+    counts.index_add_(0, torch.where(kept, parent_row, m), kept.to(torch.int64))
+    counts = counts[:m]
     return SlottedUniqueResult(parent_row, head_row, out_valid, counts, num_unique)
